@@ -1,0 +1,30 @@
+"""audio_classification_icbhi_tpu_torch — the PyTorch/CUDA port of
+audio_classification_icbhi_tpu for one NVIDIA H100.
+
+This slice carries the serving path, wav -> probabilities: the log-mel front
+end (one hand-written Hopper kernel, `ops/mel_kernels.py`), LightweightCNN
+on cuDNN, checkpoints in the JAX package's msgpack format, the inference
+engine and its CLI. Entry points run on the card unless the caller passes
+device="cpu".
+
+Nothing heavy is imported here; the exports load on first access.
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "load_config": "audio_classification_icbhi_tpu_torch.utils.config",
+    "MelFrontend": "audio_classification_icbhi_tpu_torch.ops.mel",
+    "build_model": "audio_classification_icbhi_tpu_torch.models.registry",
+    "ClassifierEngine": "audio_classification_icbhi_tpu_torch.inference",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
