@@ -1,11 +1,14 @@
 """audio_classification_icbhi_tpu_torch — the PyTorch/CUDA port of
 audio_classification_icbhi_tpu for one NVIDIA H100.
 
-This slice carries the serving path, wav -> probabilities: the log-mel front
-end (one hand-written Hopper kernel, `ops/mel_kernels.py`), LightweightCNN
-on cuDNN, checkpoints in the JAX package's msgpack format, the inference
-engine and its CLI. Entry points run on the card unless the caller passes
-device="cpu".
+It carries the serving path, wav -> probabilities: the log-mel front end
+(one hand-written Hopper kernel, `ops/mel_kernels.py`), LightweightCNN on
+cuDNN, checkpoints in the JAX package's msgpack format, the inference engine
+and its CLI; and the training path: augmentation (`ops/augment.py`), the
+kernel's SpecAugment-masked form, the train and eval steps
+(`parallel/data_parallel.py`), the trainers (`training/`), the data pipeline
+(`data/`) and the `train` / `train_icbhi` entry points. Entry points run on
+the card unless the caller passes device="cpu".
 
 Nothing heavy is imported here; the exports load on first access.
 """

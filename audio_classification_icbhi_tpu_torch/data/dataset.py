@@ -1,0 +1,76 @@
+"""Whole-recording ICBHI dataset index.
+
+Port of `audio_classification_icbhi_tpu/data/dataset.py:147-213`: glob
+`audio_and_txt_files/*.wav` sorted, pair each with its annotation txt,
+label at recording level, positional 70/15/15 split over the sorted list.
+Items are fixed-length waveforms decoded on the host (numpy codec); the mel
+transform and augmentation run on the device inside the train step. The
+native threaded decoder of `load_batch` is ROADMAP.md A6.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+
+from audio_classification_icbhi_tpu_torch.data import wavio
+from audio_classification_icbhi_tpu_torch.data.annotations import recording_label
+
+
+class ICBHIDataset:
+    """Index of (wav_path, label) with host-side fixed-shape waveform loading."""
+
+    def __init__(self, root_dir: str | Path, split: str = "train",
+                 config: dict[str, Any] | None = None, augment: bool = False):
+        self.root_dir = Path(root_dir)
+        self.split = split
+        # recorded for the trainer (augmentation runs on the device), and
+        # only for the train split
+        self.augment = augment and split == "train"
+        data_cfg = (config or {}).get("data", {})
+        self.sample_rate = int(data_cfg.get("sample_rate", 16000))
+        self.duration = float(data_cfg.get("duration", 5.0))
+        self.target_length = int(self.sample_rate * self.duration)
+        self.data = self._load_index()
+
+    def _load_index(self) -> list[tuple[str, int]]:
+        audio_dir = self.root_dir / "audio_and_txt_files"
+        if not audio_dir.exists():
+            raise ValueError(f"Audio directory not found: {audio_dir}")
+        data = []
+        for wav_file in sorted(audio_dir.glob("*.wav")):
+            txt_file = wav_file.with_suffix(".txt")
+            if txt_file.exists():
+                data.append((str(wav_file), recording_label(txt_file)))
+        total = len(data)
+        train_size = int(0.7 * total)
+        val_size = int(0.15 * total)
+        if self.split == "train":
+            data = data[:train_size]
+        elif self.split == "val":
+            data = data[train_size : train_size + val_size]
+        else:  # test
+            data = data[train_size + val_size :]
+        print(f"Loaded {len(data)} samples for {self.split} split")
+        return data
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    @property
+    def labels(self) -> np.ndarray:
+        return np.array([lbl for _, lbl in self.data], dtype=np.int32)
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, int]:
+        """-> ((target_length,) float32 waveform, label)."""
+        path, label = self.data[idx]
+        wav, _ = wavio.load_audio(path, target_sr=self.sample_rate)
+        return wavio.pad_or_crop(wav, self.target_length).astype(np.float32), label
+
+    def load_batch(self, idxs) -> tuple[np.ndarray, np.ndarray]:
+        """(B, target_length) float32 waveforms and (B,) int32 labels."""
+        idxs = [int(i) for i in idxs]
+        wavs = np.stack([self[i][0] for i in idxs]).astype(np.float32)
+        return wavs, np.asarray([self.data[i][1] for i in idxs], dtype=np.int32)

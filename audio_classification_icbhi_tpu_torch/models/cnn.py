@@ -14,6 +14,17 @@ to NCHW. With a reduced `dtype` (bf16 or fp16) the parameters stay float32
 and are cast at each op, as flax does with `dtype=`: convs and dense layers
 compute in `dtype`, BatchNorm normalizes in float32 and casts back, and the
 logits come out float32.
+
+Train mode follows flax (`cnn.py:52-62` of the JAX package), not torch's
+defaults:
+
+- BatchNorm normalizes with the batch mean and the biased batch variance,
+  and updates its running statistics as `new = 0.9·old + 0.1·batch` with the
+  biased variance too (torch's own BatchNorm would store the unbiased one,
+  n/(n−1) too large);
+- dropout masks are drawn from the `generator` passed to `forward`: one
+  mask per (sample, channel) after each block (flax `broadcast_dims=(1, 2)`),
+  one per unit before the last dense layer, survivors scaled by 1/(1−p).
 """
 
 from __future__ import annotations
@@ -30,23 +41,62 @@ def _conv_init(weight: torch.Tensor, generator: torch.Generator | None) -> None:
         weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
 
 
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            per_channel: bool = False) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from `generator` (on x's
+    device): flax `nn.Dropout` semantics. per_channel keeps one mask per
+    (sample, channel) of an NCHW tensor."""
+    if p == 0.0:
+        return x
+    shape = x.shape[:2] + (1, 1) if per_channel else x.shape
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConvBlock(nn.Module):
-    """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> Dropout2d."""
+    """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> channel dropout."""
+
+    momentum = 0.9  # flax's: weight of the old running value
 
     def __init__(self, in_channels: int, out_channels: int, drop_rate: float = 0.2,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
-        # flax momentum=0.9 (weight of the old value) is torch momentum=0.1
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
         self.pool = nn.MaxPool2d(2)  # floors odd sizes, as flax max_pool does
-        self.dropout = nn.Dropout2d(drop_rate)  # one mask per (sample, channel)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm on float32 x. Train mode: batch statistics, with the
+        running statistics updated in place from the biased variance.
+
+        F.batch_norm updates the buffers in the same pass that computes the
+        batch statistics, but with the unbiased variance: it gives u =
+        m·old + (1−m)·var·n/(n−1). With c = (n−1)/n, c·u + m·(1−c)·old is
+        flax's m·old + (1−m)·var, without a second pass over x. The running
+        variance F.batch_norm updates is a copy, since autograd may keep the
+        tensors it was given and `old` is rescaled in place."""
+        bn = self.bn
+        if not self.training:
+            return bn(x)
+        unbiased = bn.running_var.clone()
+        out = F.batch_norm(x, bn.running_mean, unbiased, bn.weight, bn.bias, training=True,
+                           momentum=1.0 - self.momentum, eps=bn.eps)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            c = (n - 1) / n
+            bn.running_var.mul_(self.momentum * (1.0 - c)).add_(unbiased, alpha=c)
+            bn.num_batches_tracked.add_(1)
+        return out
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), padding=1)
-        x = self.bn(x.float()).to(self.dtype)
-        return self.dropout(self.pool(F.relu(x)))
+        x = self.batch_norm(x.float()).to(self.dtype)
+        x = self.pool(F.relu(x))
+        if self.training:
+            x = dropout(x, self.drop_rate, generator, per_channel=True)
+        return x
 
 
 class LightweightCNN(nn.Module):
@@ -62,7 +112,7 @@ class LightweightCNN(nn.Module):
             self.add_module(f"conv{i + 1}", ConvBlock(chans[i], chans[i + 1], dtype=dtype))
         self.fc1 = nn.Linear(256, 128)
         self.fc2 = nn.Linear(128, num_classes)
-        self.dropout = nn.Dropout(dropout)
+        self.drop_rate = dropout
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -78,14 +128,23 @@ class LightweightCNN(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def set_dropout(self, p: float) -> None:
+        """Set every dropout rate: the blocks' and the head's (p = 0 makes
+        train mode deterministic)."""
+        self.drop_rate = p
+        for i in range(5):
+            getattr(self, f"conv{i + 1}").drop_rate = p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """In train mode the dropout masks come from `generator`."""
         x = x.permute(0, 3, 1, 2)  # (B, H, W, C) -> (B, C, H, W)
         for i in range(5):
-            x = getattr(self, f"conv{i + 1}")(x)
+            x = getattr(self, f"conv{i + 1}")(x, generator)
         x = x.mean(dim=(2, 3))  # global average pool -> (B, 256)
         dt = self.dtype
         x = F.relu(F.linear(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
-        x = self.dropout(x)
+        if self.training:
+            x = dropout(x, self.drop_rate, generator)
         x = F.linear(x, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
         return x.float()
 

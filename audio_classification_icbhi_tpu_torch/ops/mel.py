@@ -33,6 +33,10 @@ _ROADMAP_ROW = {
     "radix8dif_fused": "B2", "radix4dif_fused": "B3", "radix4_fused": "B4",
     "radix2_fused": "B5", "radix2": "B6", "bf16x3": "B7", "f32": "B7",
 }
+# the algorithms with a per-example epilogue, the only ones that take
+# SpecAugment bounds
+_FUSED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused", "radix4dif_fused",
+                     "radix4_fused", "radix2_fused")
 
 
 def hz_to_mel(freq, mel_scale: str = "htk"):
@@ -348,14 +352,19 @@ class MelFrontend:
             mel_scale=self.mel_scale, norm=self.norm,
         )
 
-    def _pallas_log_mel(self, waveform: torch.Tensor, normalize: bool) -> torch.Tensor:
+    def _pallas_log_mel(self, waveform: torch.Tensor, normalize: bool,
+                        spec_mask_bounds: torch.Tensor | None = None) -> torch.Tensor:
         """The algorithm `_pallas_algorithm` names, with the per-example
-        epilogue (top_db, normalize) fused. On a CUDA tensor only a ported
-        kernel runs; on a CPU tensor the plain chain computes the same
-        function."""
+        epilogue (top_db, the SpecAugment mask of `spec_mask_bounds` (B, 4),
+        normalize) fused. On a CUDA tensor only a ported kernel runs; on a
+        CPU tensor the plain chain computes the same function. Bounds need a
+        fused algorithm, as in the JAX package (`pallas_mel.py:1734-1738`)."""
         from audio_classification_icbhi_tpu_torch.ops import mel_kernels
+        from audio_classification_icbhi_tpu_torch.ops.augment import mask_from_bounds
 
         alg = self._pallas_algorithm()
+        if spec_mask_bounds is not None and alg not in _FUSED_ALGORITHMS:
+            raise ValueError("spec_mask_bounds requires a fused algorithm")
         lead = waveform.shape[:-1]
         flat = waveform.reshape(-1, waveform.shape[-1])
         if alg == "radix16dif_fused":
@@ -363,7 +372,7 @@ class MelFrontend:
                 flat, self.sample_rate, self.n_fft, self.hop_length, self.n_mels,
                 f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,
                 mel_scale=self.mel_scale, norm=self.norm, normalize=normalize,
-                dft_passes=self.dft_passes,
+                dft_passes=self.dft_passes, spec_mask_bounds=spec_mask_bounds,
             )
         elif alg in _ROADMAP_ROW and not flat.is_cuda:
             out = log_mel_spectrogram(
@@ -371,6 +380,8 @@ class MelFrontend:
                 f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,
                 mel_scale=self.mel_scale, norm=self.norm,
             )
+            if spec_mask_bounds is not None:
+                out = mask_from_bounds(out, spec_mask_bounds)
             if normalize:
                 out = normalize_spectrogram(out)
         elif alg in _ROADMAP_ROW:

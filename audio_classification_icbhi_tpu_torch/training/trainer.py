@@ -1,0 +1,401 @@
+"""Trainer with class weighting, grad accumulation, clipping, schedules,
+early stopping, TensorBoard logging and self-describing checkpoints.
+
+Port of `audio_classification_icbhi_tpu/training/trainer.py:49-921` on the
+per-step path: one train step per accumulation group of `BatchLoader`
+batches (a shorter tail group steps too, its gradient still divided by
+accum_steps), inverse-frequency class weights, the per-epoch scheduler
+stepped on the selection metric, the JAX trainer's TensorBoard tags, the best
+and periodic checkpoints in its msgpack payload (either trainer resumes from
+the other's files), early stopping, and exact resume.
+
+Randomness: the model's initial weights come from a torch.Generator seeded
+by config["seed"]; every train step draws its augmentation and dropout from
+a generator on the device seeded by (seed, epoch, step), so a resumed run
+repeats an uninterrupted one. Metrics stay on the device until the epoch
+ends and cross to the host in one copy.
+
+Not here yet: the device-resident cache and fused epoch (ROADMAP.md A6), the
+fp16 GradScaler mode (A5), multi-device training (A10), orbax (A4).
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from audio_classification_icbhi_tpu_torch.data.loader import BatchLoader
+from audio_classification_icbhi_tpu_torch.models.weights import (
+    flax_from_state_dict,
+    opt_state_from_optax,
+    optax_from_opt_state,
+    state_dict_from_flax,
+)
+from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
+from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
+    make_step_fns,
+    pad_eval_batch,
+)
+from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
+from audio_classification_icbhi_tpu_torch.training.schedules import (
+    build_scheduler,
+    restore_scheduler,
+)
+from audio_classification_icbhi_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointWriter,
+    load_checkpoint,
+    save_checkpoint,
+)
+from audio_classification_icbhi_tpu_torch.utils.config import (
+    check_ported_options,
+    resolve_device,
+)
+from audio_classification_icbhi_tpu_torch.utils.tensorboard import SummaryWriter
+
+
+def step_seed(seed: int, epoch: int, step: int) -> int:
+    """The seed of one train step's generator, a function of (seed, epoch,
+    step) alone."""
+    return int(np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class Trainer:
+    """Best-model selection on minimum validation loss."""
+
+    plateau_mode = "min"
+    # subclasses that score on predictions set this so validate() keeps the
+    # per-batch predictions from its single pass
+    collect_predictions = False
+
+    def __init__(self, model: torch.nn.Module, train_dataset, val_dataset,
+                 config: dict[str, Any], device: str | torch.device = "cuda"):
+        check_ported_options(config)
+        self.device = resolve_device(device)
+        self.model = model
+        self.train_dataset = train_dataset
+        self.val_dataset = val_dataset
+        self.config = config
+
+        tcfg = config["training"]
+        self.epochs = tcfg["epochs"]
+        self.batch_size = tcfg["batch_size"]
+        self.learning_rate = tcfg["learning_rate"]
+        self.accum_steps = max(1, tcfg.get("gradient_accumulation_steps", 1))
+        self.early_stopping_patience = tcfg.get("early_stopping_patience", 15)
+        self.save_every = tcfg.get("save_every", 5)
+        self.seed = int(config.get("seed", 42))
+
+        self.frontend = MelFrontend.from_config(config)
+        self.class_weights = torch.as_tensor(self._calculate_class_weights(), device=self.device)
+        self.train_loader = BatchLoader(train_dataset, self.batch_size, shuffle=True,
+                                        drop_last=True, seed=self.seed)
+        self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False)
+
+        self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+        self.model.to(self.device)
+        self.optimizer_name = tcfg.get("optimizer", "adam")
+        self.optimizer = build_optimizer(self.optimizer_name, self.model.parameters(),
+                                         tcfg.get("weight_decay", 0.0))
+        self.scheduler = build_scheduler(
+            tcfg.get("scheduler"), self.learning_rate, self.epochs,
+            plateau_mode=self.plateau_mode,
+            warmup_epochs=int(tcfg.get("warmup_epochs", 0)),
+        )
+        self.steps = make_step_fns(
+            self.model, self.frontend, self.optimizer,
+            accum_steps=self.accum_steps,
+            augment=bool(config["data"].get("augmentation", False))
+            and getattr(train_dataset, "augment", True),
+            max_grad_norm=1.0,
+            accum_mode=tcfg.get("accum_mode", "parallel"),
+        )
+
+        self.checkpoint_dir = Path(tcfg.get("checkpoint_dir", "checkpoints"))
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.async_checkpoint = bool(tcfg.get("async_checkpoint", True))
+        self._ckpt_writer: AsyncCheckpointWriter | None = None
+        self.writer = SummaryWriter(log_dir=tcfg.get("log_dir", "runs"))
+
+        self.history = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
+        self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+        self.best_val_loss = float("inf")
+        self.patience_counter = 0
+        self.start_epoch = 0
+
+    # ------------------------------------------------------------------ setup
+
+    def _calculate_class_weights(self) -> np.ndarray:
+        """Inverse-frequency weights; training.class_weighting=false gives
+        uniform ones."""
+        labels = self.train_dataset.labels
+        num_classes = self.config["model"]["num_classes"]
+        counts = np.bincount(labels, minlength=num_classes).astype(np.float64)
+        if not self.config["training"].get("class_weighting", True):
+            print("\nClass weighting disabled (uniform weights).")
+            return np.ones(num_classes, np.float32)
+        weights = len(labels) / (num_classes * np.maximum(counts, 1))
+        print("\nClass distribution:")
+        for i, (count, weight) in enumerate(zip(counts, weights)):
+            name = self.config["classes"][i] if i < len(self.config["classes"]) else str(i)
+            print(f"  {name}: {int(count)} samples (weight: {weight:.3f})")
+        return weights.astype(np.float32)
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------------ epochs
+
+    def _grouped_batches(self, loader):
+        """Yield (wavs (A, B, L), labels (A, B)) accumulation groups; a
+        partial tail group (fewer than accum_steps batches) is yielded too."""
+        buf_w, buf_l = [], []
+        for wavs, labels in loader:
+            buf_w.append(wavs)
+            buf_l.append(labels)
+            if len(buf_w) == self.accum_steps:
+                yield np.stack(buf_w), np.stack(buf_l)
+                buf_w, buf_l = [], []
+        if buf_w:
+            yield np.stack(buf_w), np.stack(buf_l)
+
+    def step_generator(self, epoch: int, step: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(step_seed(self.seed, epoch, step))
+
+    def train_epoch(self, epoch: int) -> tuple[float, float]:
+        self.train_loader.set_epoch(epoch)
+        lr = float(self.scheduler.lr)
+        step_metrics = []
+        for step_idx, (wavs, labels) in enumerate(self._grouped_batches(self.train_loader)):
+            metrics = self.steps.train_step(
+                self._to_device(wavs), self._to_device(labels).long(), self.class_weights, lr,
+                generator=self.step_generator(epoch, step_idx))
+            step_metrics.append(metrics)
+        if not step_metrics:
+            return 0.0, 0.0
+        packed = torch.stack([  # one device->host copy for the epoch
+            torch.stack([m["loss"] for m in step_metrics]).mean(),
+            torch.stack([m["correct"] for m in step_metrics]).sum(),
+            torch.stack([m["count"] for m in step_metrics]).sum(),
+        ]).cpu().numpy()
+        return float(packed[0]), 100.0 * float(packed[1]) / max(float(packed[2]), 1.0)
+
+    def validate(self, epoch: int) -> tuple[float, float]:
+        """One pass over the val loader; with collect_predictions the same
+        pass records (y_true, y_pred) in self.val_predictions."""
+        sums, total = [], 0.0
+        kept_preds, kept_labels = [], []
+        for wavs, labels in self.val_loader:
+            wavs, labels, mask, b = pad_eval_batch(wavs, labels, self.batch_size)
+            logits, num, den, corr = self.steps.eval_step(
+                self._to_device(wavs), self._to_device(labels).long(), self._to_device(mask),
+                self.class_weights)
+            sums.append(torch.stack([num, den, corr]))
+            total += b
+            if self.collect_predictions:
+                kept_preds.append(logits.argmax(-1)[:b])
+                kept_labels.append(labels[:b])
+        if self.collect_predictions:
+            self.val_predictions = (
+                np.concatenate(kept_labels).astype(np.int64) if kept_labels
+                else np.zeros(0, np.int64),
+                torch.cat(kept_preds).cpu().numpy().astype(np.int64) if kept_preds
+                else np.zeros(0, np.int64),
+            )
+        if not sums:
+            return 0.0, 0.0
+        stacked = torch.stack(sums).cpu().numpy()  # (N, 3)
+        # the mean of per-batch criterion values, as the JAX trainer reports
+        val_loss = float(np.mean(stacked[:, 0] / np.maximum(stacked[:, 1], 1e-12)))
+        return val_loss, 100.0 * float(stacked[:, 2].sum()) / max(total, 1.0)
+
+    # ------------------------------------------------------------------ loop
+
+    def _epoch_metrics(self, epoch: int) -> dict[str, float]:
+        """Hook: extra per-epoch validation metrics (the ICBHI trainer's)."""
+        return {}
+
+    def _selection_metric(self, val_loss: float, extra: dict) -> float:
+        return val_loss
+
+    def _is_improvement(self, metric: float) -> bool:
+        return metric < self.best_val_loss
+
+    def train(self, resume_from: str | None = None, profile_dir: str | None = None) -> dict:
+        """profile_dir writes a torch.profiler trace of the first trained
+        epoch there (`trace.json`, Chrome trace format)."""
+        if resume_from:
+            self.restore(resume_from)
+        print(f"\nStarting training for {self.epochs} epochs...")
+        print(f"Training samples: {len(self.train_dataset)}")
+        print(f"Validation samples: {len(self.val_dataset)}")
+        print(f"Device: {self.device}"
+              + (f" ({torch.cuda.get_device_name(self.device)})" if self.device.type == "cuda"
+                 else ""))
+        print(f"Batch size: {self.batch_size} (grad accum {self.accum_steps})")
+        print(f"Learning rate: {self.learning_rate}")
+        try:
+            self._train_loop(profile_dir)
+        except BaseException:
+            # drain queued writes, but never let a drain failure mask the
+            # primary error
+            try:
+                self.wait_for_checkpoints(close=True)
+            except Exception:
+                pass
+            raise
+        self.wait_for_checkpoints(close=True)
+        print("\n✓ Training completed!")
+        self.writer.close()
+        return self.history
+
+    def _train_epoch_profiled(self, epoch: int, profile_dir: str) -> tuple[float, float]:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            out = self.train_epoch(epoch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+        print(f"✓ Profiler trace written to {Path(profile_dir) / 'trace.json'}")
+        return out
+
+    def _train_loop(self, profile_dir: str | None) -> None:
+        for epoch in range(self.start_epoch, self.epochs):
+            t0 = time.time()
+            if profile_dir is not None and epoch == self.start_epoch:
+                train_loss, train_acc = self._train_epoch_profiled(epoch, profile_dir)
+            else:
+                train_loss, train_acc = self.train_epoch(epoch)
+            val_loss, val_acc = self.validate(epoch)
+            extra = self._epoch_metrics(epoch)
+
+            metric = self._selection_metric(val_loss, extra)
+            self.scheduler.step(metric)
+
+            self.writer.add_scalar("Loss/train", train_loss, epoch)
+            self.writer.add_scalar("Loss/val", val_loss, epoch)
+            self.writer.add_scalar("Accuracy/train", train_acc, epoch)
+            self.writer.add_scalar("Accuracy/val", val_acc, epoch)
+            self.writer.add_scalar("Learning_Rate", self.scheduler.lr, epoch)
+            for tag, value in extra.items():
+                self.writer.add_scalar(tag, value, epoch)
+            self.writer.flush()
+
+            self.history["train_loss"].append(train_loss)
+            self.history["val_loss"].append(val_loss)
+            self.history["train_acc"].append(train_acc)
+            self.history["val_acc"].append(val_acc)
+            self._extend_history(extra)
+
+            print(
+                f"\nEpoch {epoch + 1}/{self.epochs} - "
+                f"Train Loss: {train_loss:.4f}, Train Acc: {train_acc:.2f}% - "
+                f"Val Loss: {val_loss:.4f}, Val Acc: {val_acc:.2f}% - "
+                f"LR: {self.scheduler.lr:.6f} ({time.time() - t0:.1f}s)"
+            )
+
+            if self._is_improvement(metric):
+                self._record_best(metric)
+                self.patience_counter = 0
+                self.save_checkpoint(self.checkpoint_dir / "best_model.ckpt", epoch, val_loss, extra)
+                print(f"✓ Best model saved ({self._best_description()})")
+            else:
+                self.patience_counter += 1
+                print(f"  No improvement ({self.patience_counter}/{self.early_stopping_patience})")
+
+            if (epoch + 1) % self.save_every == 0:
+                self.save_checkpoint(self.checkpoint_dir / f"checkpoint_epoch_{epoch + 1}.ckpt",
+                                     epoch, val_loss, extra)
+
+            if self.patience_counter >= self.early_stopping_patience:
+                print(f"\nEarly stopping triggered after {epoch + 1} epochs")
+                break
+
+    def _extend_history(self, extra: dict) -> None:
+        pass
+
+    def _record_best(self, metric: float) -> None:
+        self.best_val_loss = metric
+
+    def _best_description(self) -> str:
+        return f"validation loss: {self.best_val_loss:.4f}"
+
+    # ------------------------------------------------------------------ ckpt
+
+    def _checkpoint_payload(self, epoch: int, val_loss: float, extra: dict) -> dict:
+        """The JAX trainer's payload (`trainer.py:816-839`), with flax-form
+        params, batch_stats and optax-form opt_state."""
+        variables = flax_from_state_dict(self.model.state_dict())
+        return {
+            "epoch": epoch,
+            "params": variables["params"],
+            "batch_stats": variables["batch_stats"],
+            "opt_state": optax_from_opt_state(self.optimizer, self.optimizer_name),
+            "val_loss": float(val_loss),
+            "config": self.config,
+            "class_weights": self.class_weights.cpu().numpy(),
+            "scheduler": self.scheduler.state_dict(),
+            "best_metric": float(self._best_metric()),
+            "patience_counter": int(self.patience_counter),
+        }
+
+    def _best_metric(self) -> float:
+        return self.best_val_loss
+
+    def _restore_best_metric(self, value: float, ckpt: dict) -> None:
+        self.best_val_loss = value
+
+    def save_checkpoint(self, path, epoch: int, val_loss: float, extra: dict | None = None):
+        payload = self._checkpoint_payload(epoch, val_loss, extra or {})
+        if self.async_checkpoint:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter()
+            self._ckpt_writer.save(path, payload)
+        else:
+            save_checkpoint(path, payload)
+
+    def wait_for_checkpoints(self, close: bool = False) -> None:
+        """Block until every queued checkpoint write is on disk; close=True
+        also retires the worker (a later save starts a new one)."""
+        if self._ckpt_writer is not None:
+            if close:
+                writer, self._ckpt_writer = self._ckpt_writer, None
+                writer.close()
+            else:
+                self._ckpt_writer.wait()
+
+    def restore(self, path) -> None:
+        """Resume from a checkpoint written by either package. Scheduler
+        state, the best-metric bar and the patience counter come back
+        verbatim, so a resumed run matches an uninterrupted one."""
+        self.wait_for_checkpoints()  # a queued write may be the file we read
+        ckpt = load_checkpoint(path)
+        sd = state_dict_from_flax({"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]})
+        self.model.load_state_dict(sd)
+        state = opt_state_from_optax(ckpt["opt_state"], list(self.model.named_parameters()),
+                                     self.optimizer_name)
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": self.optimizer.state_dict()["param_groups"]})
+        self.start_epoch = int(ckpt["epoch"]) + 1
+        if "best_metric" in ckpt:
+            self._restore_best_metric(float(ckpt["best_metric"]), ckpt)
+        else:  # a checkpoint without trainer state: the val_loss bar
+            self._restore_best_metric(self._legacy_best_metric(ckpt), ckpt)
+        self.patience_counter = int(ckpt.get("patience_counter", 0))
+        if "scheduler" in ckpt:
+            restore_scheduler(self.scheduler, ckpt["scheduler"])
+        else:  # replay with the selection metric
+            for _ in range(self.start_epoch):
+                self.scheduler.step(self._best_metric())
+        print(f"Resumed from {path} at epoch {self.start_epoch}")
+
+    def _legacy_best_metric(self, ckpt: dict) -> float:
+        return float(ckpt.get("val_loss", float("inf")))

@@ -15,6 +15,12 @@ opt_state, val_loss, config, ...}, as flax's `msgpack_serialize` writes it:
 The codec below covers exactly that much msgpack, so the port needs no
 msgpack package. Files written here load in the JAX package and back.
 Orbax checkpoint directories are not read yet (ROADMAP.md A4).
+
+The trainer's payload (`training/trainer.py`, as the JAX trainer's
+`trainer.py:816-839`) is {epoch, params, batch_stats, opt_state (optax's
+state-dict form), val_loss, config, class_weights, scheduler, best_metric,
+patience_counter}, so a checkpoint written by either trainer resumes in the
+other. `AsyncCheckpointWriter` writes them from a worker thread.
 """
 
 from __future__ import annotations
@@ -275,3 +281,90 @@ def load_checkpoint(path: str | Path) -> dict[str, Any]:
     if isinstance(cfg, str) and cfg.startswith("json:"):
         data["config"] = json.loads(cfg[5:])
     return data
+
+
+def _host_snapshot(tree):
+    """A copy of a checkpoint tree whose tensor leaves are host arrays
+    (numpy; bfloat16 stays a CPU tensor, which the codec writes as the JAX
+    package does), so later in-place updates of the live tensors cannot
+    reach a queued write."""
+    if isinstance(tree, dict):
+        return {k: _host_snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_snapshot(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes off the training thread.
+
+    save() takes a host snapshot of the payload on the calling thread (one
+    device->host copy per tensor leaf; the state is a few MB) and queues
+    the msgpack encoding and the file write, the slow part in pure Python,
+    for one worker thread. Files are byte-identical to synchronous
+    save_checkpoint calls. wait() blocks until every queued write is on
+    disk and re-raises the first worker error; close() also retires the
+    thread. Port of `audio_classification_icbhi_tpu/utils/checkpoint.py:169-264`.
+    """
+
+    def __init__(self):
+        import queue
+        import threading
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._errors: list[BaseException] = []
+        self._closed = False
+        self._worker = threading.Thread(target=self._run, name="ckpt-writer", daemon=True)
+        self._worker.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is not None:
+                    save_checkpoint(*item)
+            except BaseException as e:  # surfaced on the next save()/wait()
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+            if item is None:
+                return
+
+    def _raise_pending(self):
+        if self._errors:
+            raise RuntimeError("async checkpoint write failed") from self._errors.pop(0)
+
+    def save(self, path: str | Path, checkpoint: dict[str, Any]):
+        """Snapshot now, write later; blocks only while 2 writes are queued."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointWriter is closed")
+        self._raise_pending()
+        self._q.put((Path(path), _host_snapshot(checkpoint)))
+
+    def wait(self):
+        self._q.join()
+        self._raise_pending()
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        self._q.join()
+        self._q.put(None)
+        self._worker.join()
+        self._raise_pending()
+
+
+def latest_checkpoint(checkpoint_dir: str | Path) -> Path | None:
+    """The most recent periodic checkpoint (checkpoint_epoch_{N}.ckpt)."""
+    d = Path(checkpoint_dir)
+    if not d.exists():
+        return None
+    candidates = sorted(d.glob("checkpoint_epoch_*.ckpt"),
+                        key=lambda p: int(p.stem.rsplit("_", 1)[-1]))
+    return candidates[-1] if candidates else None

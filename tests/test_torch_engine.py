@@ -134,13 +134,14 @@ def test_no_hidden_cpu_run(ckpts, monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax and the
-    JAX package blocked."""
+    """Every module of the port, and chip_smoke.py, imports with jax, the
+    JAX package and the packages the card lacks (sklearn, matplotlib)
+    blocked."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
-for blocked in ("jax", "flax", "optax", "msgpack", "pandas", "yaml",
-                "audio_classification_icbhi_tpu"):
+for blocked in ("jax", "flax", "optax", "msgpack", "pandas", "yaml", "sklearn",
+                "matplotlib", "audio_classification_icbhi_tpu"):
     sys.modules[blocked] = None
 import audio_classification_icbhi_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -154,4 +155,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 28
