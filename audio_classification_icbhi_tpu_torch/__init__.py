@@ -2,13 +2,15 @@
 audio_classification_icbhi_tpu for one NVIDIA H100.
 
 It carries the serving path, wav -> probabilities: the log-mel front end
-(one hand-written Hopper kernel, `ops/mel_kernels.py`), LightweightCNN on
+(hand-written Hopper kernels, `ops/mel_kernels.py`), LightweightCNN on
 cuDNN, checkpoints in the JAX package's msgpack format, the inference engine
 and its CLI; and the training path: augmentation (`ops/augment.py`), the
 kernel's SpecAugment-masked form, the train and eval steps
 (`parallel/data_parallel.py`), the trainers (`training/`), the data pipeline
-(`data/`) and the `train` / `train_icbhi` entry points. Entry points run on
-the card unless the caller passes device="cpu".
+(`data/`) and the `train` / `train_icbhi` entry points; and the
+sliding-window analyzers (`analyzers/`, the `analyze` entry point), whose
+sub-second windows run a second hand-written kernel, the radix-8 log-mel.
+Entry points run on the card unless the caller passes device="cpu".
 
 Nothing heavy is imported here; the exports load on first access.
 """

@@ -17,6 +17,7 @@ import torch
 
 from audio_classification_icbhi_tpu_torch.data import wavio
 from audio_classification_icbhi_tpu_torch.models import build_model, count_parameters
+from audio_classification_icbhi_tpu_torch.models.registry import check_fused_cnn_opt_in
 from audio_classification_icbhi_tpu_torch.models.weights import state_dict_from_flax
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import features_from_wavs
@@ -28,13 +29,14 @@ class ClassifierEngine:
     """wav -> class probabilities from a self-describing checkpoint.
 
     Runs on `device` ("cuda" by default; it raises where no GPU exists, and
-    runs on the CPU only when given device="cpu")."""
+    runs on the CPU only when given device="cpu"). On CUDA it raises where
+    the JAX engine would take the fused Pallas CNN (`ICBHI_FUSED_CNN=1`),
+    which has no Hopper port yet."""
 
     def __init__(self, checkpoint_path: str | Path, batch_size: int = 32,
                  config: dict | None = None, device: str | torch.device = "cuda"):
         """config: fallback when the checkpoint has no embedded config; the
         embedded config wins when present."""
-        self.device = resolve_device(device)
         ckpt = load_checkpoint(checkpoint_path)
         if "config" not in ckpt and config is None:
             raise ValueError(f"checkpoint {checkpoint_path} has no embedded config")
@@ -42,6 +44,8 @@ class ClassifierEngine:
         self.class_names: list[str] = list(self.config["classes"])
         self.batch_size = batch_size
         self.frontend = MelFrontend.from_config(self.config)
+        check_fused_cnn_opt_in((1, self.frontend.n_mels, self.frontend.num_frames, 1), device)
+        self.device = resolve_device(device)
         self.model = build_model(self.config)
         self.model.load_state_dict(state_dict_from_flax(
             {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats", {})}))

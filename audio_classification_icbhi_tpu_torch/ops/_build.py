@@ -4,8 +4,8 @@ Each source compiles with nvcc for `sm_90a` into its own shared library with
 a plain C interface under `build/kernels/` at the repository root, and loads
 through ctypes. No PyTorch header is compiled, which keeps a build to seconds.
 All sources build together, one nvcc process each. A library is named by a
-digest of its source and flags, so an edited source rebuilds and an
-unchanged one loads as it is.
+digest of its source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header rebuilds and an unchanged one loads as it is.
 """
 
 from __future__ import annotations
@@ -44,8 +44,13 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    """The library of `src`, named by a digest of the source, every header
+    under csrc/ (the sources include them) and the flags."""
+    digest = hashlib.sha256()
+    for part in (src, *sorted(CSRC.glob("*.cuh"))):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, tuple[Path, str]]:

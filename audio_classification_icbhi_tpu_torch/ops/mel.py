@@ -26,15 +26,16 @@ _MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
 _LOGSTEP = np.log(6.4) / 27.0
 
 # The kernel algorithm names of the JAX package's policy
-# (`ops/mel.py:497-531`), and the one this port has a Hopper kernel for.
+# (`ops/mel.py:497-531`), and the ones this port has a Hopper kernel for.
 # Every other name raises on a CUDA tensor until ROADMAP.md queue B ports it.
-PORTED_ALGORITHMS = ("radix16dif_fused",)
+PORTED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused")
 _ROADMAP_ROW = {
-    "radix8dif_fused": "B2", "radix4dif_fused": "B3", "radix4_fused": "B4",
-    "radix2_fused": "B5", "radix2": "B6", "bf16x3": "B7", "f32": "B7",
+    "radix4dif_fused": "B3", "radix4_fused": "B4", "radix2_fused": "B5",
+    "radix2": "B6", "bf16x3": "B7", "f32": "B7",
 }
-# the algorithms with a per-example epilogue, the only ones that take
-# SpecAugment bounds
+# the algorithms with a per-example epilogue: the only ones that take
+# SpecAugment bounds, and the only ones backend "auto" sends to a kernel
+# (`_auto_pallas`, `ops/mel.py:483-487`)
 _FUSED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused", "radix4dif_fused",
                      "radix4_fused", "radix2_fused")
 
@@ -228,12 +229,17 @@ class MelFrontend:
 
     Call with a (..., L) float32 waveform; returns (..., n_mels, T).
 
-    Routing: on a CUDA tensor, backend "auto" and "pallas" run the kernel
-    the JAX package's policy picks (`_pallas_algorithm`); only
-    "radix16dif_fused" has a Hopper kernel yet, and any other algorithm
-    raises NotImplementedError naming its ROADMAP.md row. Backends "xla"
-    and "xla_radix2", the JAX package's explicit non-Pallas paths, run the
-    plain torch chain. On a CPU tensor every backend runs the plain chain.
+    Routing (`uses_kernel`), as the JAX package routes to its Pallas
+    kernels: on a CUDA tensor, backend "pallas" runs the kernel of the
+    algorithm the policy picks (`_pallas_algorithm`), and backend "auto"
+    does so only for the fused algorithms (`_auto_pallas`,
+    `ops/mel.py:483-487`); "radix2" and "bf16x3" then run the plain torch
+    chain, as the JAX package runs XLA there. Of the kernels,
+    "radix16dif_fused" and "radix8dif_fused" have Hopper ports; any other
+    algorithm a kernel route reaches raises NotImplementedError naming its
+    ROADMAP.md row. Backends "xla" and "xla_radix2", the JAX package's
+    explicit non-Pallas paths, run the plain chain. On a CPU tensor every
+    backend runs the plain chain.
 
     `dft_passes` is validated as in the JAX package, where it picks the bf16
     split of the TPU kernels' DFT GEMMs. The Hopper kernel computes its FFT
@@ -334,8 +340,14 @@ class MelFrontend:
 
     def uses_kernel(self, waveform: torch.Tensor) -> bool:
         """Whether this waveform goes to a front-end kernel: a CUDA tensor
-        under backend "auto" or "pallas"."""
-        return waveform.is_cuda and self.backend in ("auto", "pallas")
+        under backend "pallas", or under "auto" when the algorithm is a
+        fused one (the JAX package's `_auto_pallas`). The one place the
+        port decides it; `features_from_wavs` asks here too."""
+        if not waveform.is_cuda:
+            return False
+        if self.backend == "pallas":
+            return True
+        return self.backend == "auto" and self._pallas_algorithm() in _FUSED_ALGORITHMS
 
     @property
     def num_frames(self) -> int:
@@ -367,8 +379,9 @@ class MelFrontend:
             raise ValueError("spec_mask_bounds requires a fused algorithm")
         lead = waveform.shape[:-1]
         flat = waveform.reshape(-1, waveform.shape[-1])
-        if alg == "radix16dif_fused":
-            out = mel_kernels.log_mel_radix16dif_fused(
+        if alg in PORTED_ALGORITHMS:
+            kernel = getattr(mel_kernels, f"log_mel_{alg}")
+            out = kernel(
                 flat, self.sample_rate, self.n_fft, self.hop_length, self.n_mels,
                 f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,
                 mel_scale=self.mel_scale, norm=self.norm, normalize=normalize,

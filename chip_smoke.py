@@ -28,7 +28,20 @@ toolkit. Phases:
 10. training timings: the masked kernel at 64 x 8 s beside its bound and
    yardstick, the train step at config.yaml, a profiler split of one step,
    and an epoch's wall time and device share beside the loader alone and
-   validation, on a corpus of ICBHI's split sizes.
+   validation, on a corpus of ICBHI's split sizes;
+11. the radix-8 log-mel kernel (n_fft 1024, hop 256: the analyzer's
+   sub-second windows), both forms, against its plain version (float64) at
+   the analyzer's shapes and against the float64 golden; the routing repair
+   (radix2 and bf16x3 shapes run the plain chain on the card, no kernel);
+12. the analyzers through their entry point (`analyze`, all five variants)
+   on a 15 s recording with phase 9's trained checkpoint at 0.25, 0.5 and
+   1 s windows, the launch counts read around each run, the card's window
+   probabilities against the CPU's; and one training epoch at a sub-second
+   front end (n_fft 1024), which runs the radix-8 kernel's masked form;
+13. analyzer timings: the radix-8 kernel at 64 and 2,400 windows of 0.5 s
+   and its masked form at 64 x 8 s, beside bound, plain version and
+   yardstick; the warm time of one 15 s recording; windows/s over a
+   10-minute recording (2,400 windows) and a profiler split of that pass.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -37,6 +50,8 @@ result. The line before the last lists the kernels as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -49,9 +64,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch import analyze
 from audio_classification_icbhi_tpu_torch import train as train_entry
+from audio_classification_icbhi_tpu_torch.analyzers import AnalyzerEngine
 from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
-from audio_classification_icbhi_tpu_torch.data.synthetic import generate_icbhi_dataset
+from audio_classification_icbhi_tpu_torch.data.synthetic import (
+    generate_icbhi_dataset,
+    synth_respiratory_cycle,
+)
 from audio_classification_icbhi_tpu_torch.data.wavio import write_wav
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
 from audio_classification_icbhi_tpu_torch.models import LightweightCNN, build_model
@@ -74,6 +94,8 @@ SR, N_FFT, HOP, N_MELS = 16000, 2048, 512, 128
 BATCH, CLIP = 128, 5 * SR
 TRAIN_CLIP = 8 * SR  # config.yaml: 8 s clips, batch 32 x accumulation 2
 N_RECORDINGS = 920   # ICBHI's whole-recording split, 644/138/138: 10 optimizer steps an epoch
+N_FFT8, HOP8 = 1024, 256  # the analyzer's front end for windows under 1 s (radix-8 kernel)
+WINDOW = SR // 2          # the analyzer's 0.5 s window
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
@@ -98,7 +120,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def log_mel_bound_ms(batch: int, length: int, nnz: int) -> dict[str, float]:
+def log_mel_bound_ms(batch: int, length: int, nnz: int, n_fft: int = N_FFT, hop: int = HOP,
+                     n_mels: int = N_MELS) -> dict[str, float]:
     """Least times for the log-mel function at this shape, in ms: "bytes"
     (padded waveform read once, output written once) over HBM bandwidth,
     "operations" (f32) over the CUDA-core peak, and "bytes_with_scratch",
@@ -106,23 +129,43 @@ def log_mel_bound_ms(batch: int, length: int, nnz: int) -> dict[str, float]:
     (B, T, n_mels) dB scratch. Operations: 5·N·log2(N) per N-point complex
     FFT, one complex FFT per two real frames; 3 per power bin; 2 per mel
     weight; 5 per output cell. The training form also reads (B, 4) bounds,
-    16 bytes an example, which this counts in neither form (< 0.01 %)."""
-    t = 1 + length // HOP
-    out_bytes = 4 * batch * N_MELS * t
-    bytes_moved = 4 * batch * (length + N_FFT) + out_bytes
+    16 bytes an example, which this counts in neither form (< 0.01 %).
+    Both kernels compute this one function, so it bounds both."""
+    t = 1 + length // hop
+    out_bytes = 4 * batch * n_mels * t
+    bytes_moved = 4 * batch * (length + n_fft) + out_bytes
     frames = batch * t
-    flops = (frames / 2 * 5 * N_FFT * math.log2(N_FFT)
-             + frames * (3 * (N_FFT // 2 + 1) + 2 * nnz) + 5 * frames * N_MELS)
+    flops = (frames / 2 * 5 * n_fft * math.log2(n_fft)
+             + frames * (3 * (n_fft // 2 + 1) + 2 * nnz) + 5 * frames * n_mels)
     return {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
             "operations": flops / F32_FLOPS * 1e3,
             "bytes_with_scratch": (bytes_moved + 2 * out_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
-def bound(batch: int, length: int, device) -> tuple[float, str, dict[str, float]]:
-    nnz = mel_kernels._constants(SR, N_FFT, N_MELS, 0.0, SR / 2.0, "htk", None, device)[4].numel()
-    floors = log_mel_bound_ms(batch, length, nnz)
+def bound(batch: int, length: int, device, n_fft: int = N_FFT,
+          hop: int = HOP) -> tuple[float, str, dict[str, float]]:
+    nnz = mel_kernels.mel_bands(SR, n_fft, N_MELS, 0.0, SR / 2.0, "htk", None, device)[2].numel()
+    floors = log_mel_bound_ms(batch, length, nnz, n_fft, hop)
     bound_by = max(("bytes", "operations"), key=floors.get)
     return floors[bound_by], bound_by, floors
+
+
+def yardstick(x: torch.Tensor, n_fft: int, hop: int, bounds: torch.Tensor | None = None):
+    """The library call timed beside a kernel (the port never calls it):
+    torch.stft + mel matmul + dB + [mask] + normalize, on the same inputs."""
+    window = torch.hann_window(n_fft, device=x.device)
+    fb = mel_filterbank(SR, n_fft, N_MELS, device=x.device)
+
+    def library():
+        spec = torch.stft(x, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                          return_complex=True).abs() ** 2
+        db = 10.0 * torch.log10(torch.clamp(fb.T @ spec, min=1e-10))
+        if bounds is not None:
+            db = aug.mask_from_bounds(db, bounds)
+        mean = db.mean(dim=(1, 2), keepdim=True)
+        return (db - mean) / (db.std(dim=(1, 2), keepdim=True) + 1e-8)
+
+    return library
 
 
 def edge_bounds(batch: int, n_frames: int, generator: torch.Generator) -> torch.Tensor:
@@ -134,6 +177,20 @@ def edge_bounds(batch: int, n_frames: int, generator: torch.Generator) -> torch.
     b[1] = torch.tensor([120.0, 15.0, n_frames - 4.0, 30.0])
     b[2] = torch.tensor([5.0, 7.0, n_frames + 8.0, 3.0])
     return b
+
+
+def seeded_checkpoint(path: Path, mixed_precision: bool, head_scale: float,
+                      duration: float = 5.0) -> Path:
+    """A checkpoint at config's defaults (16 kHz, 128 mels, 2048/512) with
+    weights from the config's seed; head_scale > 1 spreads the classes."""
+    cfg = load_config()
+    cfg["data"]["duration"] = duration
+    cfg["training"]["mixed_precision"] = mixed_precision
+    sd = build_model(cfg, generator=set_seed(cfg["seed"])).state_dict()
+    for k in ("fc1.weight", "fc2.weight"):
+        sd[k] = sd[k] * head_scale
+    return save_checkpoint(path, {
+        "epoch": 0, **flax_from_state_dict(sd), "val_loss": 0.0, "config": cfg})
 
 
 def draws_to(d: aug.AugmentDraws, device) -> aug.AugmentDraws:
@@ -205,7 +262,7 @@ def main() -> int:
         xt = torch.from_numpy(x).to(dev)
         for kw, tol in (({}, 1e-3), (dict(top_db=60.0, normalize=True), 2e-3)):
             got = mel_kernels.log_mel_radix16dif_fused(xt, SR, N_FFT, HOP, N_MELS, **kw)
-            want = mel_kernels.log_mel_radix16dif_fused_reference(
+            want = mel_kernels.log_mel_fused_reference(
                 xt.double(), SR, N_FFT, HOP, N_MELS, **kw)
             torch.cuda.synchronize()
             check(got.shape == (b, N_MELS, 1 + length // HOP), f"shape {tuple(got.shape)}")
@@ -228,17 +285,7 @@ def main() -> int:
 
     # Phase 5: the serving path through the user's entry point
     with tempfile.TemporaryDirectory() as tmp:
-        def write_checkpoint(name: str, mixed_precision: bool, head_scale: float) -> Path:
-            cfg = load_config()
-            cfg["data"]["duration"] = 5.0
-            cfg["training"]["mixed_precision"] = mixed_precision
-            sd = build_model(cfg, generator=set_seed(cfg["seed"])).state_dict()
-            for k in ("fc1.weight", "fc2.weight"):
-                sd[k] = sd[k] * head_scale
-            return save_checkpoint(Path(tmp) / name, {
-                "epoch": 0, **flax_from_state_dict(sd), "val_loss": 0.0, "config": cfg})
-
-        ckpt = write_checkpoint("serve.ckpt", mixed_precision=True, head_scale=1.0)
+        ckpt = seeded_checkpoint(Path(tmp) / "serve.ckpt", mixed_precision=True, head_scale=1.0)
         clips = synth_clips(rng, BATCH)
         paths = []
         for i in range(3):
@@ -274,7 +321,8 @@ def main() -> int:
         # The same path in f32 with a 30x heavier head, so that the class
         # probabilities spread: bf16 rounding then no longer hides behind
         # near-uniform rows, and the CUDA path must match the CPU to 1e-4.
-        ckpt32 = write_checkpoint("f32.ckpt", mixed_precision=False, head_scale=30.0)
+        ckpt32 = seeded_checkpoint(Path(tmp) / "f32.ckpt", mixed_precision=False,
+                                   head_scale=30.0)
         p32 = ClassifierEngine(ckpt32, batch_size=BATCH, device="cuda").predict_probs(clips)
         c32 = ClassifierEngine(ckpt32, batch_size=BATCH, device="cpu").predict_probs(clips)
         err32 = float(np.abs(p32 - c32).max())
@@ -288,19 +336,9 @@ def main() -> int:
     bound_ms, bound_by, floors = bound(BATCH, CLIP, x.device)
     kernel_ms = cuda_ms(lambda: mel_kernels.log_mel_radix16dif_fused(
         x, SR, N_FFT, HOP, N_MELS, **kw), iters=50)
-    plain_ms = cuda_ms(lambda: mel_kernels.log_mel_radix16dif_fused_reference(
+    plain_ms = cuda_ms(lambda: mel_kernels.log_mel_fused_reference(
         x, SR, N_FFT, HOP, N_MELS, **kw), iters=10)
-    window = torch.hann_window(N_FFT, device=dev)
-    fb = mel_filterbank(SR, N_FFT, N_MELS, device=dev)
-
-    def library():  # yardstick only: torch.stft + mel matmul + dB + normalize
-        spec = torch.stft(x, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
-                          return_complex=True).abs() ** 2
-        db = 10.0 * torch.log10(torch.clamp(fb.T @ spec, min=1e-10))
-        mean = db.mean(dim=(1, 2), keepdim=True)
-        return (db - mean) / (db.std(dim=(1, 2), keepdim=True) + 1e-8)
-
-    library_ms = cuda_ms(library, iters=20)
+    library_ms = cuda_ms(yardstick(x, N_FFT, HOP), iters=20)
     print(f"phase 6: [{card}] log_mel_radix16dif_fused B={BATCH} x 5 s: kernel {kernel_ms:.4f} ms, "
           f"plain f32 {plain_ms:.4f} ms, torch.stft yardstick {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}; bytes {floors['bytes']:.4f}, operations "
@@ -355,16 +393,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         corpus, masked_launches = phase9_trainer(Path(tmp), card)
         training = phase10_timings(dev, rng, card, corpus, Path(tmp))
+        r8_err, r8_masked_err = phase11_radix8_kernel(dev, rng)
+        recording, r8_launches = phase12_analyzer(Path(tmp), corpus, card)
+        r8, r8_masked = phase13_analyzer_timings(dev, rng, card, Path(tmp), recording)
     training.update(launches=masked_launches, max_abs_err=masked_err)
+    r8.update(launches=r8_launches["inference"], max_abs_err=r8_err)
+    r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
 
-    source = "audio_classification_icbhi_tpu_torch/csrc/log_mel_radix16dif.cu"
-    replaces = "audio_classification_icbhi_tpu/ops/pallas_mel.py:1270"
+    csrc = "audio_classification_icbhi_tpu_torch/csrc/"
+    pallas_mel = "audio_classification_icbhi_tpu/ops/pallas_mel.py"
+    rows = (("log_mel_radix16dif_fused", "log_mel_radix16dif.cu", ":1270", serving),
+            ("log_mel_radix16dif_fused_masked", "log_mel_radix16dif.cu", ":1270", training),
+            ("log_mel_radix8dif_fused", "log_mel_radix8dif.cu", ":1193", r8),
+            ("log_mel_radix8dif_fused_masked", "log_mel_radix8dif.cu", ":1193", r8_masked))
     print(json.dumps({"kernels": [
-        {"name": "log_mel_radix16dif_fused", "route": "cuda", "source": source,
-         "replaces": replaces, **serving},
-        {"name": "log_mel_radix16dif_fused_masked", "route": "cuda",
-         "source": source, "replaces": replaces, **{k: training[k] for k in serving}},
-    ]}))
+        {"name": name, "route": "cuda", "source": csrc + source, "replaces": pallas_mel + line,
+         **{k: numbers[k] for k in serving}}
+        for name, source, line, numbers in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -387,7 +432,7 @@ def phase7_masked_kernel(dev, rng) -> float:
             got = mel_kernels.log_mel_radix16dif_fused(xt, SR, N_FFT, HOP, N_MELS,
                                                        spec_mask_bounds=bounds, **kw)
             calls += 1
-            want = mel_kernels.log_mel_radix16dif_fused_reference(
+            want = mel_kernels.log_mel_fused_reference(
                 xt.double(), SR, N_FFT, HOP, N_MELS, spec_mask_bounds=bounds, **kw)
             torch.cuda.synchronize()
             check(got.shape == (b, N_MELS, t), f"masked shape {tuple(got.shape)}")
@@ -540,19 +585,9 @@ def phase10_timings(dev, rng, card: str, corpus: Path, tmp: Path) -> dict:
     bound_ms, bound_by, floors = bound(b, TRAIN_CLIP, dev)
     kernel_ms = cuda_ms(lambda: mel_kernels.log_mel_radix16dif_fused(
         x, SR, N_FFT, HOP, N_MELS, **kw), iters=50)
-    plain_ms = cuda_ms(lambda: mel_kernels.log_mel_radix16dif_fused_reference(
+    plain_ms = cuda_ms(lambda: mel_kernels.log_mel_fused_reference(
         x, SR, N_FFT, HOP, N_MELS, **kw), iters=10)
-    window = torch.hann_window(N_FFT, device=dev)
-    fb = mel_filterbank(SR, N_FFT, N_MELS, device=dev)
-
-    def library():  # yardstick only: torch.stft + mel matmul + dB + mask + normalize
-        spec = torch.stft(x, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
-                          return_complex=True).abs() ** 2
-        db = aug.mask_from_bounds(10.0 * torch.log10(torch.clamp(fb.T @ spec, min=1e-10)), bounds)
-        mean = db.mean(dim=(1, 2), keepdim=True)
-        return (db - mean) / (db.std(dim=(1, 2), keepdim=True) + 1e-8)
-
-    library_ms = cuda_ms(library, iters=20)
+    library_ms = cuda_ms(yardstick(x, N_FFT, HOP, bounds), iters=20)
     print(f"phase 10: [{card}] masked log_mel_radix16dif_fused B={b} x 8 s: kernel "
           f"{kernel_ms:.4f} ms, plain f32 {plain_ms:.4f} ms, torch.stft yardstick "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes {floors['bytes']:.4f}, "
@@ -625,6 +660,252 @@ def phase10_timings(dev, rng, card: str, corpus: Path, tmp: Path) -> dict:
           f"validation, {len(trainer.val_dataset)} clips: {val_s * 1e3:.1f} ms")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+def phase11_radix8_kernel(dev, rng) -> tuple[float, float]:
+    """The radix-8 kernel against its plain version in float64 at the
+    analyzer's shapes (64 x 0.5 s and 128 x 0.25 s windows) and an odd one,
+    both forms; against the float64 golden; and the routing repair: auto
+    front ends at radix2 and bf16x3 shapes run the plain chain on the card.
+    Returns the largest error of each form against the plain version."""
+    kernel = mel_kernels.log_mel_radix8dif_fused
+    errs = {False: [], True: []}
+    gen = torch.Generator().manual_seed(11)
+    before = (kernel.launches, kernel.launches_masked)
+    calls = [0, 0]
+    for b, length in ((64, WINDOW), (128, WINDOW // 2), (3, WINDOW + 320)):
+        t = 1 + length // HOP8
+        x = (0.1 * rng.standard_normal((b, length))).astype(np.float32)
+        x[1] *= 20.0
+        xt = torch.from_numpy(x).to(dev)
+        bounds = edge_bounds(b, t, gen).to(dev)
+        for kw, tol in (({}, 1e-3), (dict(top_db=60.0, normalize=True), 2e-3),
+                        (dict(top_db=60.0, normalize=True, spec_mask_bounds=bounds), 2e-3)):
+            masked = "spec_mask_bounds" in kw
+            got = kernel(xt, SR, N_FFT8, HOP8, N_MELS, **kw)
+            calls[masked] += 1
+            want = mel_kernels.log_mel_fused_reference(xt.double(), SR, N_FFT8, HOP8, N_MELS, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == (b, N_MELS, t), f"radix-8 shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), "finite radix-8 output")
+            err = (got.double() - want).abs().max().item()
+            errs[masked].append(err)
+            what = ("masked, " if masked else "") + (
+                "top_db 60 + normalize" if kw else "dB")
+            print(f"phase 11: log_mel_radix8dif_fused B={b} L={length} {what}: "
+                  f"max|kernel - plain f64| = {err:.3e} (tol {tol:g})")
+            check(err <= tol, f"radix-8 kernel vs plain at B={b} L={length} {what}")
+    for duration in (0.5, 0.25):
+        wavs = parity_battery(int(SR * duration))
+        want = np.stack([golden_mel(w, SR, N_FFT8, HOP8, N_MELS) for w in wavs])
+        got = kernel(torch.from_numpy(wavs).to(dev), SR, N_FFT8, HOP8,
+                     N_MELS).double().cpu().numpy()
+        calls[0] += 1
+        err = float(np.abs(got - want).max())
+        print(f"phase 11: radix-8 golden {duration:g} s: max|kernel - f64 golden| = "
+              f"{err:.3e} dB (tol 1e-3)")
+        check(err <= 1e-3, f"radix-8 kernel vs golden at {duration} s")
+    rose = (kernel.launches - before[0], kernel.launches_masked - before[1])
+    print(f"phase 11: launches rose by {rose} over {tuple(calls)} calls (inference, masked)")
+    check(rose == tuple(calls), "the radix-8 wrapper counts every launch of each form")
+
+    # the routing repair: the JAX package runs XLA for radix2 and bf16x3
+    # shapes, so the port runs the plain chain there and launches nothing
+    for n_fft, hop, duration in ((800, 200, 0.1), (1000, 250, 0.25)):
+        fe = MelFrontend(n_fft=n_fft, hop_length=hop, duration=duration)
+        x = torch.from_numpy(synth_clips(rng, 4, int(SR * duration)))
+        counts = [kernel.launches, mel_kernels.log_mel_radix16dif_fused.launches]
+        got = fe(x.to(dev))
+        torch.cuda.synchronize()
+        check([kernel.launches, mel_kernels.log_mel_radix16dif_fused.launches] == counts,
+              f"no kernel at {n_fft}/{hop}")
+        err = (got.cpu() - fe(x)).abs().max().item()
+        print(f"phase 11: auto front end {n_fft}/{hop} ({fe._pallas_algorithm()}) on the card: "
+              f"plain chain, max|cuda - cpu| = {err:.3e} (tol 1e-3)")
+        check(err <= 1e-3, f"auto front end at {n_fft}/{hop}, cuda vs cpu")
+    return max(errs[False]), max(errs[True])
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key, shortened: no return type, no namespaces,
+    at most 60 characters ("log_mel_epilogue_kernel(float const*, ...")."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.replace("at::native::", "")[:60]
+
+
+def quiet(fn, *args, **kwargs):
+    """Call fn with its standard output (the analyzers' progress lines)
+    dropped."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def phase12_analyzer(tmp: Path, corpus: Path, card: str) -> tuple[Path, dict[str, int]]:
+    """The analyzers as a user runs them, on a 15 s recording (the engine's
+    max_duration), with phase 9's trained checkpoint; then one training
+    epoch at a sub-second front end. Returns the recording and the radix-8
+    kernel's launches on these paths: the sub-second analyzer runs
+    (inference form) and the training epoch (masked form)."""
+    gen = np.random.default_rng(12)
+    recording = tmp / "recording.wav"
+    cycles = [synth_respiratory_cycle(gen, c, 2.5, SR) for c in (0, 1, 2, 3, 1, 2)]
+    write_wav(recording, np.concatenate(cycles).astype(np.float32), SR)  # 15 s
+    trained = tmp / "run" / "checkpoints" / "best_model.ckpt"
+    k8, k16 = mel_kernels.log_mel_radix8dif_fused, mel_kernels.log_mel_radix16dif_fused
+    expected = {0.25: 120, 0.5: 60, 1.0: 30}  # windows at 50 % overlap, tail included
+    runs = [(0.5, v) for v in analyze.VARIANTS] + [(0.25, "realtime"), (1.0, "parallel")]
+    launches = {"inference": 0}
+    for duration, variant in runs:
+        for fn in (k8, k16):
+            fn.launches = fn.launches_masked = 0
+        t0 = time.perf_counter()
+        eng, results, csv_path = quiet(analyze.main, [
+            variant, "--audio", str(recording), "--model", str(trained),
+            "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n8, n16 = k8.launches, k16.launches
+        rows = csv_path.read_text().strip().splitlines()
+        print(f"phase 12: [{card}] analyze {variant} at {duration:g} s windows: "
+              f"{len(results)} windows -> {csv_path.name} ({len(rows) - 1} rows), "
+              f"{sum(r.has_crackle for r in results)} crackle / "
+              f"{sum(r.has_wheeze for r in results)} wheeze windows, {wall:.2f} s with "
+              f"engine start; launches radix8 {n8}, radix16 {n16}")
+        check(len(results) == expected[duration] == len(rows) - 1, "windows and CSV rows")
+        check(eng.device.type == "cuda" and eng.mode == analyze.VARIANTS[variant].mode,
+              "the analyzer ran on the card in its variant's mode")
+        if duration < 1.0:
+            check(n8 == 1 and n16 == 0, "sub-second windows ran the radix-8 kernel")
+            launches["inference"] += n8
+        else:
+            check(n16 == 1 and n8 == 0, "1 s windows ran the radix-16 kernel")
+
+    # the card's window probabilities against the port on the CPU
+    fp32 = seeded_checkpoint(tmp / "analyzer_f32.ckpt", mixed_precision=False,
+                             head_scale=30.0, duration=1.0)
+    for ckpt, tol, what in ((trained, 5e-3, "trained checkpoint, bf16 CNN"),
+                            (fp32, 1e-4, "seeded, f32 CNN, 30x head")):
+        for duration in (0.25, 0.5, 1.0):
+            engines = [quiet(AnalyzerEngine, str(ckpt), segment_duration=duration,
+                             sample_rate=SR, device=d) for d in ("cuda", "cpu")]
+            windows = quiet(lambda: engines[0].segment_audio(engines[0].load_audio(recording)))[0]
+            gpu, cpu = (e.predict_window_probs(windows) for e in engines)
+            err = float(np.abs(gpu - cpu).max())
+            print(f"phase 12: {what}, {duration:g} s windows: max|cuda - cpu| probability "
+                  f"= {err:.3e} (tol {tol:g}); classes {np.bincount(gpu.argmax(-1), minlength=4).tolist()}")
+            check(bool(np.isfinite(gpu).all()) and err <= tol,
+                  f"analyzer probabilities, cuda vs cpu, {what}, {duration} s")
+
+    # the training path at a sub-second front end: config.yaml with n_fft
+    # 1024 and hop 256, one epoch on phase 9's corpus (JSON is YAML)
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["data"].update(n_fft=N_FFT8, hop_length=HOP8)
+    cfg["training"].update(checkpoint_dir=str(tmp / "r8" / "ckpt"), log_dir=str(tmp / "r8" / "runs"))
+    cfg_path = tmp / "config_n_fft_1024.yaml"
+    cfg_path.write_text(json.dumps(cfg))
+    for fn in (k8, k16):
+        fn.launches = fn.launches_masked = 0
+    t0 = time.perf_counter()
+    history = quiet(train_entry.main, ["--config", str(cfg_path), "--data-path", str(corpus),
+                                       "--epochs", "1"])
+    torch.cuda.synchronize()
+    launches["masked"] = k8.launches_masked
+    print(f"phase 12: [{card}] train.main, 1 epoch at n_fft 1024 / hop 256: "
+          f"{time.perf_counter() - t0:.1f} s; history {json.dumps(history)}; launches radix8 "
+          f"masked {k8.launches_masked}, radix8 {k8.launches}, radix16 "
+          f"{k16.launches + k16.launches_masked}")
+    check(k8.launches_masked > 0 and k16.launches + k16.launches_masked == 0,
+          "the sub-second training path ran the radix-8 kernel's masked form")
+    check(all(math.isfinite(v) for vals in history.values() for v in vals), "finite history")
+    return recording, launches
+
+
+def phase13_analyzer_timings(dev, rng, card: str, tmp: Path, recording: Path) -> tuple[dict, dict]:
+    """The radix-8 kernel beside its bound, plain version and yardstick at
+    the analyzer's 64 x 0.5 s (a 15 s recording's bucket) and 2,400 x 0.5 s
+    (a 10-minute recording), and its masked form at 64 x 8 s; then the
+    analyzer end to end. Returns the kernel-line numbers of both forms."""
+    kernel = mel_kernels.log_mel_radix8dif_fused
+    rows = {}
+    for b, length, masked in ((64, WINDOW, False), (2400, WINDOW, False), (64, TRAIN_CLIP, True)):
+        x = torch.from_numpy(synth_clips(rng, b, length)).to(dev)
+        bounds = (edge_bounds(b, 1 + length // HOP8, torch.Generator().manual_seed(13)).to(dev)
+                  if masked else None)
+        kw = dict(normalize=True, spec_mask_bounds=bounds)
+        bound_ms, bound_by, floors = bound(b, length, dev, N_FFT8, HOP8)
+        kernel_ms = cuda_ms(lambda: kernel(x, SR, N_FFT8, HOP8, N_MELS, **kw), iters=50)
+        plain_ms = cuda_ms(lambda: mel_kernels.log_mel_fused_reference(
+            x, SR, N_FFT8, HOP8, N_MELS, **kw), iters=10)
+        library_ms = cuda_ms(yardstick(x, N_FFT8, HOP8, bounds), iters=20)
+        print(f"phase 13: [{card}] {'masked ' if masked else ''}log_mel_radix8dif_fused B={b} "
+              f"x {length / SR:g} s: kernel {kernel_ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+              f"torch.stft yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"bytes {floors['bytes']:.4f}, operations {floors['operations']:.4f}, bytes with "
+              f"the dB scratch {floors['bytes_with_scratch']:.4f})")
+        rows[(b, masked)] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": library_ms}
+        # the device's share of one call: the wrapper's kernels by name
+        calls = 10
+        kernels, busy_us, wall_us = trace_device(
+            lambda: kernel(x, SR, N_FFT8, HOP8, N_MELS, **kw), calls)
+        print(f"phase 13:   traced {calls} calls: device busy {busy_us / calls:.1f} us/call of "
+              f"{wall_us / calls:.1f} us/call wall; "
+              + "; ".join(f"{kernel_name(e.key)} {e.self_device_time_total / calls:.1f} us"
+                          for e in kernels))
+        del x
+
+    trained = tmp / "run" / "checkpoints" / "best_model.ckpt"
+    eng = quiet(AnalyzerEngine, str(trained), segment_duration=0.5, sample_rate=SR)
+    for _ in range(3):
+        quiet(eng.analyze_audio, recording)
+    wall_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        quiet(eng.analyze_audio, recording)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    audio = quiet(eng.load_audio, recording)
+    windows = quiet(eng.segment_audio, audio)[0]
+    pass_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.predict_window_probs(windows)
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 13: [{card}] analyzer, 15 s recording at 0.5 s windows (60 -> bucket 64), "
+          f"warm: analyze_audio (wav decode, windows, device pass, results) median "
+          f"{np.median(wall_ms):.3f} ms, p90 {np.percentile(wall_ms, 90):.3f} ms; the device "
+          f"pass alone (host windows in, probabilities out) median {np.median(pass_ms):.3f} ms")
+
+    long_path = tmp / "ten_minutes.wav"
+    write_wav(long_path, synth_clips(rng, 1, 600 * SR)[0], SR)
+    long = quiet(AnalyzerEngine, str(trained), segment_duration=0.5, sample_rate=SR,
+                 max_duration=None)
+    audio = quiet(long.load_audio, long_path)
+    windows = quiet(long.segment_audio, audio)[0]
+    check(windows.shape == (2400, WINDOW), f"10 minutes -> 2,400 windows, got {windows.shape}")
+    for _ in range(2):
+        long.predict_window_probs(windows)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        probs = long.predict_window_probs(windows)
+        times.append(time.perf_counter() - t0)
+    check(probs.shape == (2400, 4) and bool(np.isfinite(probs).all()), "10-minute probabilities")
+    t0 = time.perf_counter()
+    results, _ = quiet(long.analyze_audio, long_path)
+    whole = time.perf_counter() - t0
+    print(f"phase 13: [{card}] analyzer, 10-minute recording, max_duration=None, 2,400 windows "
+          f"of 0.5 s: device pass median {np.median(times) * 1e3:.3f} ms = "
+          f"{2400 / np.median(times):.1f} windows/s; analyze_audio end to end (wav decode "
+          f"included) {whole * 1e3:.1f} ms for {len(results)} windows")
+    kernels, busy_us, wall_us = trace_device(lambda: long.predict_window_probs(windows), 2)
+    print(f"phase 13: [{card}] traced 2 passes of 2,400 windows: device busy "
+          f"{busy_us / 2:.1f} us/pass of {wall_us / 2:.1f} us/pass wall "
+          f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels) / 2:.0f} kernel "
+          f"launches a pass")
+    for e in kernels[:14]:
+        print(f"phase 13:   {e.self_device_time_total / 2:9.1f} us/pass "
+              f"{e.count // 2:3d}x  {e.key[:90]}")
+    return rows[(64, False)], rows[(64, True)]
+
 
 if __name__ == "__main__":
     sys.exit(main())

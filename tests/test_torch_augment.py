@@ -22,7 +22,7 @@ from audio_classification_icbhi_tpu_torch.ops import augment as aug
 from audio_classification_icbhi_tpu_torch.ops import mel as port_mel
 from audio_classification_icbhi_tpu_torch.ops.mel_kernels import (
     log_mel_radix16dif_fused,
-    log_mel_radix16dif_fused_reference,
+    log_mel_fused_reference,
 )
 from audio_classification_icbhi_tpu_torch.parallel import data_parallel as port_dp
 
@@ -167,7 +167,7 @@ class TestMaskedKernel:
             jnp.asarray(n), SR, N_FFT, HOP, N_MELS, algorithm="radix16dif_fused",
             interpret=True, spec_mask_bounds=jnp.asarray(EDGE_BOUNDS), **kw))
         bounds = torch.from_numpy(EDGE_BOUNDS)
-        got = log_mel_radix16dif_fused_reference(
+        got = log_mel_fused_reference(
             torch.from_numpy(n), SR, N_FFT, HOP, N_MELS, spec_mask_bounds=bounds, **kw).numpy()
         assert got.shape == (3, N_MELS, 32)
         np.testing.assert_allclose(got, want, atol=2e-3)
@@ -176,9 +176,9 @@ class TestMaskedKernel:
                                            spec_mask_bounds=bounds, **kw).numpy()
         np.testing.assert_array_equal(wrapped, got)
         # the masked cells are where the bounds say, and nowhere else
-        unmasked = log_mel_radix16dif_fused_reference(
+        unmasked = log_mel_fused_reference(
             torch.from_numpy(n), SR, N_FFT, HOP, N_MELS, top_db=60.0).numpy()
-        masked = log_mel_radix16dif_fused_reference(
+        masked = log_mel_fused_reference(
             torch.from_numpy(n), SR, N_FFT, HOP, N_MELS, top_db=60.0,
             spec_mask_bounds=bounds).numpy()
         zeroed = masked != unmasked

@@ -134,9 +134,9 @@ def test_no_hidden_cpu_run(ckpts, monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax, the
-    JAX package and the packages the card lacks (sklearn, matplotlib)
-    blocked."""
+    """Every module of the port (the analyzers and `analyze` among them),
+    and chip_smoke.py, imports with jax, the JAX package and the packages
+    the card lacks (sklearn, matplotlib) blocked."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -155,4 +155,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28
+    assert int(out.stdout.strip()) >= 37
