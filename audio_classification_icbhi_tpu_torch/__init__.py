@@ -9,7 +9,9 @@ kernel's SpecAugment-masked form, the train and eval steps
 (`parallel/data_parallel.py`), the trainers (`training/`), the data pipeline
 (`data/`) and the `train` / `train_icbhi` entry points; and the
 sliding-window analyzers (`analyzers/`, the `analyze` entry point), whose
-sub-second windows run a second hand-written kernel, the radix-8 log-mel.
+sub-second windows run a second hand-written kernel, the radix-8 log-mel;
+and the opt-in fused CNN (`ICBHI_FUSED_CNN=1`, `models/fused_infer.py`),
+whose blocks 1-3 run hand-written conv-block kernels (`ops/conv_kernels.py`).
 Entry points run on the card unless the caller passes device="cpu".
 
 Nothing heavy is imported here; the exports load on first access.

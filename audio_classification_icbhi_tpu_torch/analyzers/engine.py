@@ -22,6 +22,7 @@ Detection semantics (both reference variants):
 from __future__ import annotations
 
 import csv
+import functools
 import math
 from dataclasses import dataclass
 from pathlib import Path
@@ -32,6 +33,11 @@ import torch.nn.functional as F
 
 from audio_classification_icbhi_tpu_torch.data import wavio
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
+from audio_classification_icbhi_tpu_torch.models import (
+    LightweightCNN,
+    fused_cnn_enabled,
+    make_fused_apply,
+)
 from audio_classification_icbhi_tpu_torch.ops import mel as mel_ops
 
 CLASS_MAP = {0: "normal", 1: "crackle", 2: "wheeze", 3: "both"}
@@ -202,6 +208,18 @@ class AnalyzerEngine:
 
     # ---------------------------------------------------------------- device pass
 
+    @functools.cached_property
+    def _apply_fn(self):
+        """feats -> logits (`analyzers/engine.py:216-237` of the JAX
+        package): the fused conv-block kernels when `fused_cnn_enabled` says
+        so for this device and the analyzer's feature height (the kernels
+        take any width >= 4), else the model's forward."""
+        model = self.classifier.model
+        if (isinstance(model, LightweightCNN)
+                and fused_cnn_enabled((1, self.frontend.n_mels, 4, 1), self.device)):
+            return make_fused_apply(model, self.device)
+        return model
+
     def _window_bucket(self, w: int) -> int:
         return max(32, int(math.ceil(w / 32)) * 32)
 
@@ -216,7 +234,7 @@ class AnalyzerEngine:
             windows = np.concatenate(
                 [windows, np.zeros((bucket - w,) + windows.shape[1:], windows.dtype)])
         x = torch.as_tensor(windows, dtype=torch.float32).to(self.device)
-        logits = self.classifier.model(self.frontend(x)[..., None])
+        logits = self._apply_fn(self.frontend(x)[..., None])
         return torch.softmax(logits.float(), dim=-1).cpu().numpy()[:w]
 
     # ---------------------------------------------------------------- results

@@ -4,11 +4,14 @@ Port of `audio_classification_icbhi_tpu/inference.py:30-220`. The model is
 rebuilt from the config embedded in the checkpoint, so consumers never need
 the original YAML. One wav -> probabilities path serves single clips and
 batches: the log-mel front end (the Hopper kernel on the card), then
-LightweightCNN in eval mode and a softmax.
+LightweightCNN in eval mode and a softmax. With `ICBHI_FUSED_CNN=1` on the
+card the CNN runs through the fused conv-block kernels
+(`models/fused_infer.py`), as the JAX engine takes its fused Pallas CNN.
 """
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 from typing import Any
 
@@ -16,8 +19,13 @@ import numpy as np
 import torch
 
 from audio_classification_icbhi_tpu_torch.data import wavio
-from audio_classification_icbhi_tpu_torch.models import build_model, count_parameters
-from audio_classification_icbhi_tpu_torch.models.registry import check_fused_cnn_opt_in
+from audio_classification_icbhi_tpu_torch.models import (
+    LightweightCNN,
+    build_model,
+    count_parameters,
+    fused_cnn_enabled,
+    make_fused_apply,
+)
 from audio_classification_icbhi_tpu_torch.models.weights import state_dict_from_flax
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import features_from_wavs
@@ -29,9 +37,7 @@ class ClassifierEngine:
     """wav -> class probabilities from a self-describing checkpoint.
 
     Runs on `device` ("cuda" by default; it raises where no GPU exists, and
-    runs on the CPU only when given device="cpu"). On CUDA it raises where
-    the JAX engine would take the fused Pallas CNN (`ICBHI_FUSED_CNN=1`),
-    which has no Hopper port yet."""
+    runs on the CPU only when given device="cpu")."""
 
     def __init__(self, checkpoint_path: str | Path, batch_size: int = 32,
                  config: dict | None = None, device: str | torch.device = "cuda"):
@@ -44,7 +50,6 @@ class ClassifierEngine:
         self.class_names: list[str] = list(self.config["classes"])
         self.batch_size = batch_size
         self.frontend = MelFrontend.from_config(self.config)
-        check_fused_cnn_opt_in((1, self.frontend.n_mels, self.frontend.num_frames, 1), device)
         self.device = resolve_device(device)
         self.model = build_model(self.config)
         self.model.load_state_dict(state_dict_from_flax(
@@ -54,10 +59,20 @@ class ClassifierEngine:
         self.val_loss = float(ckpt.get("val_loss", float("nan")))
         self.extras = {k: ckpt[k] for k in ("icbhi_score", "icbhi_metrics") if k in ckpt}
 
+    @functools.cached_property
+    def _apply_fn(self):
+        """feats -> logits for the eval path (`inference.py:67-86` of the JAX
+        package): the model's forward, or the fused conv-block kernels when
+        `fused_cnn_enabled` says so for this device and feature shape."""
+        shape = (1, self.frontend.n_mels, self.frontend.num_frames, 1)
+        if isinstance(self.model, LightweightCNN) and fused_cnn_enabled(shape, self.device):
+            return make_fused_apply(self.model, self.device)
+        return self.model
+
     @torch.inference_mode()
     def _probs(self, wavs: torch.Tensor) -> torch.Tensor:
         """(B, target_length) f32 on self.device -> (B, C) f32 probabilities."""
-        logits = self.model(features_from_wavs(self.frontend, wavs))
+        logits = self._apply_fn(features_from_wavs(self.frontend, wavs))
         return torch.softmax(logits.float(), dim=-1)
 
     def _to_device(self, wav) -> torch.Tensor:

@@ -1,8 +1,15 @@
-"""Classifiers as torch nn.Modules (LightweightCNN in this slice)."""
+"""Classifiers as torch nn.Modules (LightweightCNN in this slice), and the
+opt-in fused inference forward."""
 
 from audio_classification_icbhi_tpu_torch.models.cnn import (  # noqa: F401
     ConvBlock,
     LightweightCNN,
     count_parameters,
+)
+from audio_classification_icbhi_tpu_torch.models.fused_infer import (  # noqa: F401
+    fused_apply_supported,
+    fused_cnn_enabled,
+    fused_kernels_available,
+    make_fused_apply,
 )
 from audio_classification_icbhi_tpu_torch.models.registry import build_model  # noqa: F401

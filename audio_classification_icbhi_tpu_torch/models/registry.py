@@ -45,22 +45,3 @@ def build_model(config: dict[str, Any], dtype: torch.dtype | None = None,
         generator=generator,
     )
 
-
-def check_fused_cnn_opt_in(feats_shape: tuple[int, ...], device: str | torch.device) -> None:
-    """Raise where the JAX package's engines would take its fused Pallas
-    CNN (`models/fused_infer.py:131-160`): `ICBHI_FUSED_CNN=1` (or the older
-    `BENCH_FUSED_CNN=1`), on the accelerator, for a one-channel feature
-    shape (B, n_mels, T, 1) with n_mels % 16 == 0, n_mels >= 32 and T >= 4.
-    Those conv kernels have no Hopper port yet, and the port does not run
-    cuDNN's convs in their place unasked. On the CPU the JAX package runs
-    XLA's convs whatever the switch says, and so does the port."""
-    import os
-
-    asked = os.environ.get("ICBHI_FUSED_CNN", os.environ.get("BENCH_FUSED_CNN", "0")) == "1"
-    _, h, w, c = feats_shape
-    if (asked and torch.device(device).type == "cuda"
-            and c == 1 and h % 16 == 0 and h >= 32 and w >= 4):
-        raise NotImplementedError(
-            "ICBHI_FUSED_CNN=1 asks for the fused conv-block kernels, which have no "
-            "Hopper port yet (ROADMAP.md B8-B9, then A12); unset it to run the "
-            "model's cuDNN convs")

@@ -1,1 +1,1 @@
-"""Front-end ops: STFT, mel, and the Hopper log-mel kernel."""
+"""Ops: STFT, mel, the Hopper log-mel kernels and the fused conv-block kernels."""

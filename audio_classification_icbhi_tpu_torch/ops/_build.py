@@ -95,3 +95,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def launch(lib: ctypes.CDLL, fn, *args) -> None:
+    """Call the C entry point `fn` of `lib`; raise with CUDA's message if it
+    returns an error (a refused launch never runs, and no later synchronize
+    reports it)."""
+    err = fn(*args)
+    if err:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")

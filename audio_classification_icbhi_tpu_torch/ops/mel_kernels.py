@@ -149,13 +149,6 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
             _dev(_complex_pairs(stages), torch.float32, device))
 
 
-def _launch(lib, fn, *args) -> None:
-    err = fn(*args)
-    if err:
-        msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")
-
-
 def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate: int,
                    n_fft: int, hop_length: int, n_mels: int, *, f_min: float,
                    f_max: float | None, top_db: float | None, mel_scale: str,
@@ -198,7 +191,7 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
     dev_index = device.index if device.index is not None else torch.cuda.current_device()
     spectrum(lib, dev_index, x, n_fft, hop_length, t, bands, db, stream)
     bounds = None if spec_mask_bounds is None else spec_mask_bounds.contiguous()
-    _launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
+    _build.launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
             int(top_db is not None), 0.0 if top_db is None else float(top_db),
             int(normalize), float(eps), None if bounds is None else bounds.data_ptr(),
             out.data_ptr(), stream)
@@ -243,7 +236,7 @@ def _check_n_fft_radix16dif(n_fft: int) -> None:
 def _spectrum_radix16dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
     window, twiddle = _twiddles_radix16dif(n_fft, x.device)
     mel_start, mel_offset, mel_weight = bands
-    _launch(lib, lib.log_mel_spectrum_launch, dev_index, x.data_ptr(), x.shape[0],
+    _build.launch(lib, lib.log_mel_spectrum_launch, dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
             mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
             mel_start.numel(), mel_weight.numel(), db.data_ptr(), stream)
@@ -279,7 +272,7 @@ def _check_n_fft_radix8dif(n_fft: int) -> None:
 def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
     window, twiddle_rn, twiddle_fft = _twiddles_radix8dif(n_fft, x.device)
     mel_start, mel_offset, mel_weight = bands
-    _launch(lib, lib.log_mel_radix8dif_launch, dev_index, x.data_ptr(), x.shape[0],
+    _build.launch(lib, lib.log_mel_radix8dif_launch, dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle_rn.data_ptr(),
             twiddle_fft.data_ptr(), mel_start.data_ptr(), mel_offset.data_ptr(),
             mel_weight.data_ptr(), mel_start.numel(), mel_weight.numel(), db.data_ptr(),

@@ -41,7 +41,19 @@ toolkit. Phases:
 13. analyzer timings: the radix-8 kernel at 64 and 2,400 windows of 0.5 s
    and its masked form at 64 x 8 s, beside bound, plain version and
    yardstick; the warm time of one 15 s recording; windows/s over a
-   10-minute recording (2,400 windows) and a profiler split of that pass.
+   10-minute recording (2,400 windows) and a profiler split of that pass;
+14. the fused conv-block kernels (blocks 1, 1 batched, 2 and 3) against
+   their plain versions on the card, in bf16 (one bf16 ulp), at the serving
+   shapes and odd ones; `fused_kernels_available()`; the fused apply on the
+   card against itself on the CPU and against the model's cuDNN forward;
+   each kernel timed beside its bound, plain version and the port's cuDNN
+   ConvBlock as yardstick;
+15. the opt-in `ICBHI_FUSED_CNN=1` through the entry points: the serving
+   engine (predict_probs, classify_wave, classify_files) and `analyze.main`
+   at 0.5 s windows, the launch counts read around each run, the
+   probabilities held against the same engines without the switch; wav ->
+   logits clips/s and classify_wave latency with and without the switch,
+   and a profiler split of the fused step.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -74,9 +86,16 @@ from audio_classification_icbhi_tpu_torch.data.synthetic import (
 )
 from audio_classification_icbhi_tpu_torch.data.wavio import write_wav
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
-from audio_classification_icbhi_tpu_torch.models import LightweightCNN, build_model
+from audio_classification_icbhi_tpu_torch.models import (
+    LightweightCNN,
+    build_model,
+    fused_kernels_available,
+    make_fused_apply,
+)
+from audio_classification_icbhi_tpu_torch.models import fused_infer
 from audio_classification_icbhi_tpu_torch.models.weights import flax_from_state_dict
 from audio_classification_icbhi_tpu_torch.ops import _build, mel_kernels
+from audio_classification_icbhi_tpu_torch.ops import conv_kernels as ck
 from audio_classification_icbhi_tpu_torch.ops import augment as aug
 from audio_classification_icbhi_tpu_torch.ops.golden import golden_mel, parity_battery
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, mel_filterbank
@@ -96,8 +115,9 @@ TRAIN_CLIP = 8 * SR  # config.yaml: 8 s clips, batch 32 x accumulation 2
 N_RECORDINGS = 920   # ICBHI's whole-recording split, 644/138/138: 10 optimizer steps an epoch
 N_FFT8, HOP8 = 1024, 256  # the analyzer's front end for windows under 1 s (radix-8 kernel)
 WINDOW = SR // 2          # the analyzer's 0.5 s window
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core
+# FLOP/s, dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -396,6 +416,10 @@ def main() -> int:
         r8_err, r8_masked_err = phase11_radix8_kernel(dev, rng)
         recording, r8_launches = phase12_analyzer(Path(tmp), corpus, card)
         r8, r8_masked = phase13_analyzer_timings(dev, rng, card, Path(tmp), recording)
+        conv_rows = phase14_conv_kernels(dev, rng, card)
+        conv_launches = phase15_fused_cnn(dev, rng, card, Path(tmp), recording)
+    for name, numbers in conv_rows.items():
+        numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
     training.update(launches=masked_launches, max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"], max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
@@ -409,7 +433,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source, "replaces": pallas_mel + line,
          **{k: numbers[k] for k in serving}}
-        for name, source, line, numbers in rows]}))
+        for name, source, line, numbers in rows]
+        + [{"name": name, "route": "cuda", "source": csrc + source,
+            "replaces": "audio_classification_icbhi_tpu/ops/pallas_conv.py" + line,
+            **{k: conv_rows[name][k] for k in serving}}
+           for name, (source, line, _) in CONV_ROWS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -905,6 +933,332 @@ def phase13_analyzer_timings(dev, rng, card: str, tmp: Path, recording: Path) ->
         print(f"phase 13:   {e.self_device_time_total / 2:9.1f} us/pass "
               f"{e.count // 2:3d}x  {e.key[:90]}")
     return rows[(64, False)], rows[(64, True)]
+
+
+
+# phase 14-15: the fused conv-block kernels. Kernel-line rows: (CUDA source,
+# TPU kernel line in pallas_conv.py, wrappers whose launches the row counts)
+CONV_ROWS = {
+    "fused_conv_block1": ("fused_conv_block1.cu", ":92", ("fused_conv_block1",)),
+    "fused_conv_block1_batched": ("fused_conv_block1.cu", ":334", ("fused_conv_block1_batched",)),
+    "fused_conv_packed": ("fused_conv_packed.cu", ":157", ("fused_conv_block2", "fused_conv_block3")),
+}
+CONV_WRAPPERS = ("fused_conv_block1", "fused_conv_block1_batched", "fused_conv_block2",
+                 "fused_conv_block3")
+WRAPPER_BLOCK = {"fused_conv_block1": 0, "fused_conv_block1_batched": 0, "fused_conv_block2": 1,
+                 "fused_conv_block3": 2}
+
+
+def seeded_cnn(seed: int, head_scale: float = 30.0) -> LightweightCNN:
+    """A bf16 LightweightCNN from `seed`, with BN statistics, scales and
+    biases away from their init, so that folding them is exercised, and the
+    head's weights times `head_scale`, so that the logits follow the CNN's
+    features (at init they are ~1e-2 whatever the features)."""
+    cfg = load_config()
+    cfg["training"]["mixed_precision"] = True
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        model.fc1.weight.mul_(head_scale)
+        model.fc2.weight.mul_(head_scale)
+        for i in range(1, 6):
+            bn = getattr(model, f"conv{i}").bn
+            n = bn.num_features
+            bn.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            bn.running_var.copy_(0.5 + torch.rand(n, generator=g))
+            bn.weight.copy_(1.0 + 0.2 * torch.randn(n, generator=g))
+            bn.bias.copy_(0.1 * torch.randn(n, generator=g))
+    return model.eval()
+
+
+def one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """(max |got - want|, whether every element is within one bf16 ulp:
+    |d| <= 2^-7 |want| + 1e-4 max |want|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+    return err.max().item(), bool((err <= limit).all())
+
+
+def conv_bound_ms(x: torch.Tensor, folded: ck.FoldedConvBlock) -> tuple[float, str, dict]:
+    """Least time for one fused block on x: its input, taps, bias and pooled
+    bf16 output moved once over HBM bandwidth, against its 2·9·ci·co
+    operations a pre-pool pixel that a pool window covers (floor pooling
+    drops an odd last row or column, so the function never needs it) over
+    the bf16 tensor-core peak (the products are bf16 x bf16 into f32, the
+    tensor cores' own type)."""
+    b, h, w, ci = x.shape
+    co = folded.co
+    out_bytes = 2 * b * (h // 2) * (w // 2) * co
+    moved = (x.numel() * x.element_size() + folded.taps.numel() * folded.taps.element_size()
+             + 4 * co + out_bytes)
+    pixels = b * (h // 2 * 2) * (w // 2 * 2)
+    floors = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+              "operations": 2 * 9 * ci * co * pixels / BF16_FLOPS * 1e3}
+    bound_by = max(floors, key=floors.get)
+    return floors[bound_by], bound_by, floors
+
+
+def phase14_conv_kernels(dev, rng, card: str) -> dict[str, dict]:
+    """Each fused conv-block wrapper against its plain version on the card,
+    in bf16, at the serving shapes (block 1 on the log-mel of 128 clips of
+    5 s, blocks 2 and 3 on the outputs of the blocks before) and odd ones;
+    the probe; the fused apply against itself on the CPU and against the
+    model's cuDNN forward; then each kernel timed at the serving shape.
+    Returns the kernel-line numbers of each CONV_ROWS row but its launches."""
+    model = seeded_cnn(14).to(dev)
+    sd = model.state_dict()
+    args = [ck.block_args_from_state_dict(sd, i) for i in range(3)]
+    folded = [ck.fold_conv_block(*args[i], bias_bf16=i == 0, device=dev) for i in range(3)]
+    fe = MelFrontend.from_config(load_config())
+    with torch.inference_mode():
+        feats = features_from_wavs(fe, torch.from_numpy(synth_clips(rng, BATCH)).to(dev))
+        x2 = ck.conv_block1_reference(feats, folded[0])
+        x3 = ck.conv_packed_reference(x2, folded[1])
+    check(tuple(feats.shape) == (BATCH, N_MELS, 157, 1), f"serving features {tuple(feats.shape)}")
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    # the analyzer's bucket of 64 windows of 0.5 s (n_fft 1024, hop 256: 32
+    # frames), chained through the plain blocks as the fused apply chains it
+    xa = rand(64, N_MELS, 32, 1)
+    with torch.inference_mode():
+        xa2 = ck.conv_block1_reference(xa, folded[0])
+        xa3 = ck.conv_packed_reference(xa2, folded[1])
+    junk = torch.zeros((1, 8, 12, 32), device=dev)
+    junk[:, :, :10] = rand(1, 8, 10, 32)
+    junk[:, :, 10:] = 5.0  # past true_w: never read
+    cases = [("fused_conv_block1", feats, {}), ("fused_conv_block1", rand(3, 128, 157, 1), {}),
+             ("fused_conv_block1", rand(2, 128, 64, 1), {}), ("fused_conv_block1", rand(1, 32, 9, 1), {}),
+             ("fused_conv_block1", rand(1, 48, 70, 1), {"pad_out_w": 40}),
+             ("fused_conv_block1", xa, {}), ("fused_conv_block2", xa2, {}),
+             ("fused_conv_block3", xa3, {}),
+             ("fused_conv_block1_batched", feats, {"group": 8}),
+             ("fused_conv_block1_batched", rand(13, 32, 9, 1), {"group": 8}),
+             ("fused_conv_block1_batched", rand(13, 128, 157, 1), {"group": 8}),
+             ("fused_conv_block2", x2, {}), ("fused_conv_block2", rand(2, 64, 78, 32), {}),
+             ("fused_conv_block2", rand(1, 64, 77, 32), {}), ("fused_conv_block2", rand(1, 8, 9, 32), {}),
+             ("fused_conv_block2", junk, {"true_w": 10, "pad_out_w": 8}),
+             ("fused_conv_block3", x3, {}), ("fused_conv_block3", rand(2, 32, 39, 64), {}),
+             ("fused_conv_block3", rand(1, 16, 20, 64), {}), ("fused_conv_block3", rand(3, 18, 19, 64), {})]
+    errs = {name: [] for name in CONV_ROWS}
+    for name, x, kw in cases:
+        blk = WRAPPER_BLOCK[name]
+        fn = getattr(ck, name)
+        before = fn.launches
+        got = fn(x, *args[blk], **kw)
+        plain_kw = {k: v for k, v in kw.items() if k != "group"}
+        want = (ck.conv_block1_reference(x, folded[0], **plain_kw) if blk == 0
+                else ck.conv_packed_reference(x, folded[blk], **plain_kw))
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{name} counted its launch")
+        check(got.shape == want.shape and got.dtype == torch.bfloat16,
+              f"{name} shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()), f"finite {name} output")
+        err, ok = one_bf16_ulp(got, want)
+        row = next(r for r, (_, _, names) in CONV_ROWS.items() if name in names)
+        errs[row].append(err)
+        print(f"phase 14: {name} {tuple(x.shape)} {x.dtype} {kw or ''}: max|kernel - plain| = "
+              f"{err:.3e} (max |plain| {want.float().abs().max().item():.3f}; tol one bf16 ulp)")
+        check(ok, f"{name} within one bf16 ulp of its plain version at {tuple(x.shape)} {kw}")
+    check(fused_kernels_available() is True, "fused_kernels_available()")
+    print("phase 14: fused_kernels_available() passed")
+
+    # logits held relative to their largest: the fused apply ends in a bf16
+    # head, so it is within a few bf16 ulps (2^-8 each) of either reference,
+    # while a wrong block moves the logits by their own size
+    apply_gpu, apply_cpu = make_fused_apply(model, dev), make_fused_apply(model, "cpu")
+    rel_tol = 3e-2
+    with torch.inference_mode():
+        for what, f in (("serving 128 x 128 x 157", feats), ("analyzer 64 x 128 x 32", xa)):
+            lg = apply_gpu(f)
+            lm = model(f).float()
+            lc = apply_cpu(f[:16].cpu())
+            torch.cuda.synchronize()
+            top = lm.abs().max().item()
+            err_cpu = (lg[:16].cpu() - lc).abs().max().item()
+            err_model = (lg - lm).abs().max().item()
+            print(f"phase 14: fused apply, {what}: max|cuda - cpu| logits (16 rows) {err_cpu:.3e}; "
+                  f"max|fused - cuDNN forward| {err_model:.3e}; max |logit| {top:.3e} "
+                  f"(tol {rel_tol} x max |logit|; spread head, max |logit| >= 1)")
+            check(bool(torch.isfinite(lg).all()) and top >= 1.0
+                  and max(err_cpu, err_model) <= rel_tol * top, f"fused apply at {what}")
+
+    # timings at the serving shapes, through the folded entry points the
+    # fused apply calls; the yardstick is the port's cuDNN ConvBlock
+    timed = {"fused_conv_block1": (lambda: ck.conv_block1_folded(feats, folded[0]), feats, 0),
+             "fused_conv_block1_batched": (
+                 lambda: ck.conv_block1_batched_folded(feats, folded[0], group=8), feats, 0),
+             "fused_conv_block2": (lambda: ck.conv_packed_folded(x2, folded[1]), x2, 1),
+             "fused_conv_block3": (lambda: ck.conv_packed_folded(x3, folded[2]), x3, 2)}
+    per = {}
+    with torch.inference_mode():
+        for name, (kernel, x, blk) in timed.items():
+            plain = ((lambda: ck.conv_block1_reference(x, folded[0])) if blk == 0
+                     else (lambda: ck.conv_packed_reference(x, folded[blk])))
+            block = getattr(model, f"conv{blk + 1}")
+            nchw = x.permute(0, 3, 1, 2)
+            kernel_ms = cuda_ms(kernel, iters=50)
+            plain_ms = cuda_ms(plain, iters=20)
+            library_ms = cuda_ms(lambda: block(nchw), iters=50)
+            bound_ms, bound_by, floors = conv_bound_ms(x, folded[blk])
+            per[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms}
+            print(f"phase 14: [{card}] {name} {tuple(x.shape)} {x.dtype}: kernel {kernel_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, cuDNN ConvBlock yardstick {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; bytes {floors['bytes']:.4f}, operations "
+                  f"{floors['operations']:.4f})")
+    packed = {k: per["fused_conv_block2"][k] + per["fused_conv_block3"][k]
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    rows = {"fused_conv_block1": per["fused_conv_block1"],
+            "fused_conv_block1_batched": per["fused_conv_block1_batched"],
+            "fused_conv_packed": {**packed, "bound_by": "operations"}}
+    check(per["fused_conv_block2"]["bound_by"] == per["fused_conv_block3"]["bound_by"] == "operations",
+          "blocks 2 and 3 bound by operations")
+    for row, numbers in rows.items():
+        numbers["max_abs_err"] = max(errs[row])
+    return rows
+
+
+def conv_counts() -> dict[str, int]:
+    return {name: getattr(ck, name).launches for name in CONV_WRAPPERS}
+
+
+def zero_counts() -> None:
+    for name in CONV_WRAPPERS:
+        getattr(ck, name).launches = 0
+    for fn in (mel_kernels.log_mel_radix16dif_fused, mel_kernels.log_mel_radix8dif_fused):
+        fn.launches = fn.launches_masked = 0
+
+
+def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[str, int]:
+    """`ICBHI_FUSED_CNN=1` through the entry points: the serving engine
+    (predict_probs, classify_wave, classify_files on a seeded 5 s checkpoint)
+    and `analyze.main` at 0.5 s windows with phase 9's trained checkpoint,
+    each with the launch counts zeroed before and read after; the same
+    engines without the switch as reference; then the fused step's speed
+    beside the cuDNN one. Returns each wrapper's launches over both runs.
+
+    The probe of `fused_kernels_available` is cleared first, so the counts
+    hold what a fresh process pays: one launch of each wrapper (row 9's only
+    one) when the first engine takes the fused path."""
+    # head x15: the probabilities follow the CNN (spread >= 4x the tolerance,
+    # so a CNN with a constant output fails) while bf16 stays within 5e-3
+    ckpt = seeded_checkpoint(tmp / "fused_serve.ckpt", mixed_precision=True, head_scale=15.0)
+    trained = tmp / "run" / "checkpoints" / "best_model.ckpt"
+    clips = synth_clips(rng, BATCH)
+    paths = []
+    for i in range(3):
+        paths.append(tmp / f"fused_clip{i}.wav")
+        write_wav(paths[-1], clips[i, ::2], SR // 2)
+    windows = None
+    os.environ["ICBHI_FUSED_CNN"] = "1"
+    try:
+        fused_infer._PROBED.clear()  # phase 14 ran the probe; a user's process has not
+        zero_counts()
+        engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+        probs = engine.predict_probs(clips)
+        one = engine.classify_wave(clips[0])
+        files = engine.classify_files(paths)
+        torch.cuda.synchronize()
+        serve = conv_counts()
+        serve["log_mel_radix16dif_fused"] = mel_kernels.log_mel_radix16dif_fused.launches
+        print(f"phase 15: serving path with ICBHI_FUSED_CNN=1: launches {serve}")
+        check(engine._apply_fn is not engine.model, "the serving engine took the fused apply")
+        check(all(serve[k] > 0 for k in ("fused_conv_block1", "fused_conv_block2",
+                                         "fused_conv_block3", "log_mel_radix16dif_fused")),
+              "rows 8 and 10 and the log-mel kernel launched on the fused serving path")
+
+        zero_counts()
+        eng, results, csv_path = quiet(analyze.main, [
+            "parallel", "--audio", str(recording), "--model", str(trained),
+            "--segment-duration", "0.5", "--output-dir", str(tmp / "fused_analysis")])
+        torch.cuda.synchronize()
+        ana = conv_counts()
+        ana["log_mel_radix8dif_fused"] = mel_kernels.log_mel_radix8dif_fused.launches
+        rows = csv_path.read_text().strip().splitlines()
+        print(f"phase 15: [{card}] analyze parallel at 0.5 s windows with ICBHI_FUSED_CNN=1: "
+              f"{len(results)} windows -> {csv_path.name} ({len(rows) - 1} rows); launches {ana}")
+        check(eng._apply_fn is not eng.classifier.model, "the analyzer took the fused apply")
+        check(len(results) == 60 == len(rows) - 1, "analyzer windows and CSV rows")
+        check(all(ana[k] > 0 for k in ("fused_conv_block1", "fused_conv_block2",
+                                       "fused_conv_block3", "log_mel_radix8dif_fused")),
+              "rows 8 and 10 and the radix-8 kernel launched on the fused analyzer path")
+        windows = quiet(lambda: eng.segment_audio(eng.load_audio(recording)))[0]
+        fused_windows = eng.predict_window_probs(windows)
+    finally:
+        os.environ.pop("ICBHI_FUSED_CNN", None)
+    check(serve["fused_conv_block1_batched"] == 1 and ana["fused_conv_block1_batched"] == 0,
+          "the batched wrapper launched by the first engine's probe only")
+
+    plain = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+    check(plain._apply_fn is plain.model, "without the switch the engine runs the model")
+    ref = plain.predict_probs(clips)
+    ref_files = plain.classify_files(paths)
+    err = float(np.abs(probs - ref).max())
+    err_one = float(np.abs(np.array(list(one["probabilities"].values()))
+                           - np.array(list(plain.classify_wave(clips[0])["probabilities"].values()))).max())
+    err_files = max(abs(a["confidence"] - b["confidence"]) for a, b in zip(files, ref_files))
+    spread = float(np.abs(ref - ref.mean(axis=0)).max())
+    print(f"phase 15: serving probabilities, fused vs cuDNN engine: predict_probs {err:.3e}, "
+          f"classify_wave {err_one:.3e}, classify_files confidences {err_files:.3e} (tol 5e-3); "
+          f"spread max|p - mean p| {spread:.3e} (>= 2e-2); classes "
+          f"{np.bincount(ref.argmax(-1), minlength=ref.shape[1]).tolist()}")
+    check(spread >= 2e-2, "the serving checkpoint's probabilities follow the CNN")
+    check(max(err, err_one, err_files) <= 5e-3, "fused serving probabilities vs cuDNN")
+    plain_ana = quiet(AnalyzerEngine, str(trained), segment_duration=0.5, sample_rate=SR)
+    ref_windows = plain_ana.predict_window_probs(windows)
+    err_w = float(np.abs(fused_windows - ref_windows).max())
+    print(f"phase 15: analyzer window probabilities (trained checkpoint), fused vs cuDNN: "
+          f"{err_w:.3e} (tol 5e-3); classes {np.bincount(fused_windows.argmax(-1), minlength=4).tolist()}")
+    check(bool(np.isfinite(fused_windows).all()) and err_w <= 5e-3, "fused analyzer probabilities")
+
+    # speed, with and without the switch, in turns: cuDNN, fused, fused, cuDNN
+    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+    applies = {"cuDNN": plain._apply_fn, "fused": engine._apply_fn}
+
+    def step(apply):
+        return apply(features_from_wavs(engine.frontend, x))
+
+    with torch.inference_mode():
+        for name in ("cuDNN", "fused", "fused", "cuDNN"):
+            for _ in range(3):
+                step(applies[name])
+            torch.cuda.synchronize()
+            reps = 20
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                logits = step(applies[name])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(bool(torch.isfinite(logits).all()), "finite logits")
+            print(f"phase 15: [{card}] wav->logits batch {BATCH}, {name} CNN: "
+                  f"{BATCH * reps / dt:.1f} clips/s ({dt / reps * 1e3:.3f} ms per batch)")
+    host_clip = clips[0]
+    for e in (engine, plain):
+        e.warmup_latency()
+    lat = {"fused": [], "cuDNN": []}
+    for _ in range(50):
+        for name, e in (("fused", engine), ("cuDNN", plain)):
+            t0 = time.perf_counter()
+            e.classify_wave(host_clip)
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ms in lat.items():
+        print(f"phase 15: [{card}] classify_wave, batch 1, host clip in, {name} CNN: median "
+              f"{np.median(ms):.3f} ms, p90 {np.percentile(ms, 90):.3f} ms over 50 calls")
+    steps = 5
+    with torch.inference_mode():
+        for name in ("fused", "cuDNN"):
+            kernels, busy_us, wall_us = trace_device(lambda: step(applies[name]), steps)
+            print(f"phase 15: [{card}] traced {steps} {name} steps: device busy "
+                  f"{busy_us / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall "
+                  f"({100 * busy_us / wall_us:.1f}%), "
+                  f"{sum(e.count for e in kernels) / steps:.0f} kernel launches a step")
+            for e in kernels[:14]:
+                print(f"phase 15:   {e.self_device_time_total / steps:9.1f} us/step "
+                      f"{e.count // steps:3d}x  {kernel_name(e.key)}")
+    return {k: serve[k] + ana[k] for k in CONV_WRAPPERS}
 
 
 if __name__ == "__main__":

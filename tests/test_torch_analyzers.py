@@ -1,6 +1,6 @@
 """The analyzer slice end to end: the port's FlexibleMelFrontend and
 AnalyzerEngine against the JAX package's on one checkpoint, the `analyze`
-entry point's five variants, and the fused-CNN opt-in.
+entry point's five variants, and the fused-CNN opt-in's routing.
 
 Both packages read the same JAX-written checkpoint (config.yaml's schema:
 16 kHz, 128 mels, n_fft 2048, hop 512); inputs are made with numpy from a
@@ -257,16 +257,28 @@ def test_entry_point_runs_as_a_module():
 
 def test_fused_cnn_opt_in_raises_on_cuda(ckpts, monkeypatch):
     """ICBHI_FUSED_CNN=1 is where the JAX engines take the Pallas CNN
-    (`models/fused_infer.py:131`). On CUDA both of the port's engines raise
-    naming ROADMAP.md B8-B9 instead of running cuDNN unasked; on the CPU,
-    where the JAX package runs XLA's convs, the port runs."""
+    (`models/fused_infer.py:131`); the port's engines take its fused
+    conv-block kernels there (the port's `models/fused_infer.py`). Asking
+    for cuda without a card raises, whatever the switch says; on the CPU,
+    where the JAX package runs XLA's convs, both engines run the model's
+    forward; where the switch holds, the analyzer routes its windows
+    through the fused apply, within 5e-3 of the model's forward."""
+    import audio_classification_icbhi_tpu_torch.analyzers.engine as engine_mod
+
     monkeypatch.setenv("ICBHI_FUSED_CNN", "1")
-    with pytest.raises(NotImplementedError, match="B8-B9"):
-        ClassifierEngine(ckpts[True], device="cuda")
-    with pytest.raises(NotImplementedError, match="B8-B9"):
-        AnalyzerEngine(ckpts[True], segment_duration=0.5, device="cuda")
-    assert ClassifierEngine(ckpts[True], device="cpu").device.type == "cpu"
-    monkeypatch.setenv("ICBHI_FUSED_CNN", "0")  # off: cuda is asked for as usual
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ClassifierEngine(ckpts[True], device="cuda")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ClassifierEngine(ckpts[True], device="cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            AnalyzerEngine(ckpts[True], segment_duration=0.5, device="cuda")
+    eng = AnalyzerEngine(ckpts[True], segment_duration=0.5, device="cpu")
+    assert eng._apply_fn is eng.classifier.model
+    assert eng.classifier._apply_fn is eng.classifier.model
+    windows = (0.1 * np.random.default_rng(3).standard_normal((6, SR // 2))).astype(np.float32)
+    want = eng.predict_window_probs(windows)
+    monkeypatch.setattr(engine_mod, "fused_cnn_enabled", lambda shape, device: True)
+    fused = AnalyzerEngine(ckpts[True], segment_duration=0.5, device="cpu")
+    got = fused.predict_window_probs(windows)
+    assert fused._apply_fn is not fused.classifier.model
+    np.testing.assert_allclose(got, want, atol=5e-3)

@@ -134,9 +134,10 @@ def test_no_hidden_cpu_run(ckpts, monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the analyzers and `analyze` among them),
-    and chip_smoke.py, imports with jax, the JAX package and the packages
-    the card lacks (sklearn, matplotlib) blocked."""
+    """Every module of the port (the analyzers and `analyze`, the conv-block
+    kernels and the fused apply among them), and chip_smoke.py, imports with
+    jax, the JAX package and the packages the card lacks (sklearn,
+    matplotlib) blocked."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -145,6 +146,8 @@ for blocked in ("jax", "flax", "optax", "msgpack", "pandas", "yaml", "sklearn",
     sys.modules[blocked] = None
 import audio_classification_icbhi_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for new in ("ops.conv_kernels", "models.fused_infer"):
+    assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
 for attr in pkg.__all__:
@@ -155,4 +158,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 39
