@@ -7,8 +7,8 @@ one device pass over the whole bucket, followed by one copy to the host.
 
 Front end: `FlexibleMelFrontend`. For windows under 1 s it shortens the FFT
 (n_fft = min(1024, sr·dur/2), hop = n_fft/4), which at 16 kHz sends every
-window from 0.128 s up to 1 s to the radix-8 log-mel kernel; 1 s windows at
-config.yaml's 2048/512 run the radix-16 kernel. The routing is
+window from 0.128 s up to 1 s to `radix8dif_fused`; 1 s windows at
+config.yaml's 2048/512 run `radix16dif_fused`. The routing is
 `MelFrontend`'s own.
 
 Detection semantics (both reference variants):

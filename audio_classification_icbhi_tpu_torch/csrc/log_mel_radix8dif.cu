@@ -2,6 +2,11 @@
 // port of the TPU kernel `_kernel_radix8dif_fused` / `_log_mel_radix8dif_fused`
 // (audio_classification_icbhi_tpu/ops/pallas_mel.py:1193, :1456; constants
 // `_constants_radix8dif` :307-395) and its epilogue `_fused_epilogue` (:683).
+// It takes n_fft 1024, 2048, 4096 and 8192 at any hop, and there it runs every
+// log-mel algorithm: row 1 `_kernel_radix16dif_fused` (:1270) at config.yaml's
+// 2048/512, and rows 3-6 at those n_fft. At each of them it is faster than
+// log_mel_mixed_radix.cu, which takes every other n_fft (chip_smoke.py phase
+// 16 times the two).
 //
 // Function: reflect-padded (B, L + N) f32 waveform -> frames at hop ->
 // periodic Hann -> |rfft|^2 -> banded mel projection -> 10*log10(max(., 1e-10))
@@ -27,9 +32,9 @@
 // 128 mels, 64 windows of 0.5 s = 2,048 frames) the function reads ~2.3 MB
 // of padded waveform and writes ~1 MB: about 1 us of HBM time, and ~61 MFLOP
 // of f32 work, about 1 us of CUDA-core time. Neither binds: the kernel is
-// bound by latency and by how many frames it keeps in flight. (The radix-16
-// kernel's design, one 256-thread block running one FFT at a time behind a
-// block barrier per stage, would give 128 blocks of 16 serialised frames.)
+// bound by latency and by how many frames it keeps in flight. (One 256-thread
+// block running one FFT at a time behind a block barrier per stage would give
+// 128 blocks of 16 serialised frames.)
 //
 // What the design does about that:
 // - One warp per frame, eight warps a block, every frame of the batch in
@@ -49,13 +54,14 @@
 //   of its bins at their natural index k = 8m + r (or N - k) into the warp's
 //   power buffer, skewed by one word every 32 to spread the banks. Then, after
 //   one __syncwarp, lane l sums the mel bands l, l + 32, ... over their nonzero
-//   weights only (the banded filterbank of the radix-16 kernel) and writes dB
-//   to the (B, T, n_mels) scratch, neighbouring lanes to neighbouring mels.
+//   weights only (`mel_bands` in ops/mel_kernels.py) and writes dB to the
+//   (B, T, n_mels) scratch, neighbouring lanes to neighbouring mels.
 // - The TPU kernel's bf16 hi/lo DFT GEMMs exist because Mosaic has no f32
 //   matmul. Here everything stays f32: a bf16 mel projection alone would
 //   break the 1e-3 dB budget.
-// - The epilogue is log_mel_epilogue.cuh's kernel, shared with the radix-16
-//   source, so the training form (nullable (B, 4) bounds) comes with it.
+// - The epilogue is log_mel_epilogue.cuh's kernel, shared with
+//   log_mel_mixed_radix.cu, so the training form (nullable (B, 4) bounds)
+//   comes with it.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -28,11 +28,12 @@ _LOGSTEP = np.log(6.4) / 27.0
 # The kernel algorithm names of the JAX package's policy
 # (`ops/mel.py:497-531`), and the ones this port has a Hopper kernel for.
 # Every other name raises on a CUDA tensor until ROADMAP.md queue B ports it.
-PORTED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused")
-_ROADMAP_ROW = {
-    "radix4dif_fused": "B3", "radix4_fused": "B4", "radix2_fused": "B5",
-    "radix2": "B6", "bf16x3": "B7", "f32": "B7",
-}
+PORTED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused", "radix4dif_fused",
+                     "radix4_fused", "radix2_fused", "radix2")
+# each algorithm's row in ROADMAP.md queue B
+_ROADMAP_ROW = {"radix16dif_fused": "B1", "radix8dif_fused": "B2", "radix4dif_fused": "B3",
+                "radix4_fused": "B4", "radix2_fused": "B5", "radix2": "B6",
+                "bf16x3": "B7", "f32": "B7"}
 # the algorithms with a per-example epilogue: the only ones that take
 # SpecAugment bounds, and the only ones backend "auto" sends to a kernel
 # (`_auto_pallas`, `ops/mel.py:483-487`)
@@ -234,17 +235,20 @@ class MelFrontend:
     algorithm the policy picks (`_pallas_algorithm`), and backend "auto"
     does so only for the fused algorithms (`_auto_pallas`,
     `ops/mel.py:483-487`); "radix2" and "bf16x3" then run the plain torch
-    chain, as the JAX package runs XLA there. Of the kernels,
-    "radix16dif_fused" and "radix8dif_fused" have Hopper ports; any other
-    algorithm a kernel route reaches raises NotImplementedError naming its
-    ROADMAP.md row. Backends "xla" and "xla_radix2", the JAX package's
-    explicit non-Pallas paths, run the plain chain. On a CPU tensor every
-    backend runs the plain chain.
+    chain, as the JAX package runs XLA there. Every algorithm but "bf16x3"
+    and "f32" has a Hopper port (`PORTED_ALGORITHMS`; the source each shape
+    runs is `mel_kernels.cuda_route`'s, by n_fft: the radix-8 kernel at
+    1024, 2048, 4096 and 8192, the mixed-radix kernel at every other n_fft
+    up to 16,384); "bf16x3" and "f32" on a kernel route raise
+    NotImplementedError naming ROADMAP.md row B7, and so does an n_fft past
+    the kernels' limit, naming the algorithm's row. Backends "xla" and
+    "xla_radix2", the JAX package's explicit non-Pallas paths, run the plain
+    chain. On a CPU tensor every backend runs the plain chain.
 
     `dft_passes` is validated as in the JAX package, where it picks the bf16
-    split of the TPU kernels' DFT GEMMs. The Hopper kernel computes its FFT
-    and mel projection in float32, at least as accurate as every pass
-    budget, so it takes the value and ignores it.
+    split of the TPU kernels' DFT GEMMs. The Hopper kernels compute their
+    FFT and mel projection in float32, at least as accurate as every pass
+    budget, so they take the value and ignore it.
     """
 
     def __init__(
@@ -380,7 +384,7 @@ class MelFrontend:
         lead = waveform.shape[:-1]
         flat = waveform.reshape(-1, waveform.shape[-1])
         if alg in PORTED_ALGORITHMS:
-            kernel = getattr(mel_kernels, f"log_mel_{alg}")
+            kernel = mel_kernels.WRAPPERS[alg]
             out = kernel(
                 flat, self.sample_rate, self.n_fft, self.hop_length, self.n_mels,
                 f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,

@@ -1,19 +1,32 @@
 """The log-mel front-end kernels on Hopper, and their one plain version.
 
-Two hand-written CUDA kernels replace two TPU kernels of
-`audio_classification_icbhi_tpu/ops/pallas_mel.py`, with the per-example
-epilogue `_fused_epilogue` (`:683`) they both end in:
+Two hand-written CUDA sources replace the six log-mel TPU kernels of
+`audio_classification_icbhi_tpu/ops/pallas_mel.py` that end in, or are
+followed by, the per-example epilogue `_fused_epilogue` (`:683`). One
+wrapper a TPU kernel, with the TPU kernel's shape contract:
 
-- `log_mel_radix16dif_fused` (`csrc/log_mel_radix16dif.cu`) replaces
-  `_kernel_radix16dif_fused` (`:1270`), launched by
-  `_log_mel_radix16dif_fused` (`:1374`, `pl.pallas_call` at `:1437`); it
-  takes n_fft % 2048 == 0;
-- `log_mel_radix8dif_fused` (`csrc/log_mel_radix8dif.cu`) replaces
-  `_kernel_radix8dif_fused` (`:1193`), launched by
-  `_log_mel_radix8dif_fused` (`:1456`, `pl.pallas_call` at `:1523`); it
-  takes n_fft % 1024 == 0.
+- `log_mel_radix16dif_fused` replaces `_kernel_radix16dif_fused` (`:1270`,
+  via `_log_mel_radix16dif_fused` `:1374`); n_fft % 2048 == 0;
+- `log_mel_radix8dif_fused` replaces `_kernel_radix8dif_fused` (`:1193`, via
+  `:1456`); n_fft % 1024 == 0;
+- `log_mel_radix4dif_fused` replaces `_kernel_radix4dif_fused` (`:1037`, via
+  `:1111`); n_fft % 512 == 0, hop % 128 == 0;
+- `log_mel_radix4_fused` replaces `_kernel_radix4_fused` (`:861`, via `:947`);
+  hop % 512 == 0;
+- `log_mel_radix2_fused` replaces `_kernel_radix2_fused` (`:723`, via `:783`);
+  hop % 256 == 0;
+- `log_mel_radix2` replaces `_kernel_radix2` (`:633`, via `_log_mel_radix2`
+  `:1542`); any hop, dB only in the TPU package with top_db and normalize
+  after it, so no SpecAugment bounds.
 
-Both compute the same function, (B, L) f32 waveform -> (B, n_mels, T) f32
+All six compute one function, so the source a CUDA tensor runs depends on
+n_fft alone (`cuda_route`): `csrc/log_mel_radix8dif.cu` at n_fft 1024, 2048,
+4096 and 8192, where it is the faster of the two (`chip_smoke.py` phase 16
+times both), and `csrc/log_mel_mixed_radix.cu` at every other n_fft up to
+`MIXED_RADIX_MAX_N_FFT`; both take any hop. Beyond that limit the CUDA route
+raises NotImplementedError naming the algorithm's ROADMAP.md row.
+
+All compute the same function, (B, L) f32 waveform -> (B, n_mels, T) f32
 log-mel:
 
   reflect pad by n_fft/2 -> frame at hop -> periodic Hann -> |rfft|² ->
@@ -21,15 +34,16 @@ log-mel:
   example's own peak] -> [SpecAugment mask] -> [normalize: mean, ddof=1 std,
   (x − mean)/(std + eps) over the valid T × n_mels cells].
 
-Each has two forms, as the TPU kernels have (`with_masks`): the inference
-form, and the training form, which takes per-example SpecAugment bounds
-(B, 4) and zeroes those cells between the dB stage and normalize. Each
-wrapper counts its forms' launches apart: `launches` and `launches_masked`.
-On a CPU tensor both run `log_mel_fused_reference`.
+The fused wrappers have two forms, as the TPU kernels have (`with_masks`):
+the inference form, and the training form, which takes per-example
+SpecAugment bounds (B, 4) and zeroes those cells between the dB stage and
+normalize. Each wrapper counts its forms' launches apart: `launches` and
+`launches_masked`. On a CPU tensor every wrapper runs
+`log_mel_fused_reference`.
 
 Each CUDA source's header note says what bounds its kernel on the card and
 what its design does about it; the epilogue kernel is
-`csrc/log_mel_epilogue.cuh`, which both include. A wrapper reflect-pads (as
+`csrc/log_mel_epilogue.cuh`, which all include. A wrapper reflect-pads (as
 the TPU wrappers do), allocates the dB scratch and the output, and launches
 the spectrum kernel and the epilogue on the current stream.
 """
@@ -46,25 +60,72 @@ from audio_classification_icbhi_tpu_torch.ops import _build
 from audio_classification_icbhi_tpu_torch.ops.augment import mask_from_bounds
 from audio_classification_icbhi_tpu_torch.ops import stft as stft_ops
 from audio_classification_icbhi_tpu_torch.ops.mel import (
+    _ROADMAP_ROW,
     _mel_filterbank_np,
     check_dft_passes,
     log_mel_spectrogram,
     normalize_spectrogram,
 )
 
+# The TPU kernels' shape contracts (`pallas_mel.py:1380-1388`, `:1462-1471`,
+# `:1117-1126`, `:953-960`, `:789-794` with `:1799-1800`, `:1808-1809`):
+# algorithm -> (n_fft divisor, d, parts). d: n_fft % hop == 0 and
+# (hop // d) % 128 == 0 ("hop_length % 128·d == 0"); None for radix2, which
+# takes any hop. parts: (n_fft // parts) % 128 == 0 ("n_fft % 128·parts"), or
+# None.
+_CONTRACTS = {
+    "radix16dif_fused": (16, 1, 16),
+    "radix8dif_fused": (8, 1, 8),
+    "radix4dif_fused": (8, 1, 4),
+    "radix4_fused": (8, 4, None),
+    "radix2_fused": (4, 2, None),
+    "radix2": (4, None, None),
+}
+# the most shared memory a Hopper block can opt into, in bytes
+HOPPER_SMEM_OPTIN = 232_448
+
+
+def mixed_radix_smem_bytes(n_fft: int) -> int:
+    """Shared memory a block of `csrc/log_mel_mixed_radix.cu` takes (its
+    `spectrum_smem_bytes`): the N complex values, then two power spectra."""
+    return 8 * n_fft + 8 * (n_fft // 2 + 1)
+
+
+# the kernels' n_fft limit: the largest power of two whose block fits (16,384)
+MIXED_RADIX_MAX_N_FFT = max(1 << k for k in range(32)
+                            if mixed_radix_smem_bytes(1 << k) <= HOPPER_SMEM_OPTIN)
+
+
 def _check_eligible(algorithm: str, n_fft: int, hop_length: int) -> None:
-    """The TPU kernels' shape contracts, with their messages
-    (`pallas_mel.py:1380-1388` for radix16dif_fused, `:1462-1471` for
-    radix8dif_fused)."""
-    parts = 16 if algorithm == "radix16dif_fused" else 8
-    if n_fft % parts:
-        raise ValueError(f"{algorithm} requires n_fft divisible by {parts}")
+    """The TPU kernels' shape contracts, with their messages, in their order."""
+    divisor, d, parts = _CONTRACTS[algorithm]
+    if n_fft % divisor:
+        raise ValueError(f"{algorithm} requires n_fft divisible by {divisor}")
+    if d is None:
+        return
     if n_fft % hop_length:
         raise ValueError(f"{algorithm} requires n_fft divisible by hop_length")
-    if hop_length % 128:
-        raise ValueError(f"{algorithm} requires hop_length % 128 == 0")
-    if (n_fft // parts) % 128:
+    if (hop_length // d) % 128:
+        raise ValueError(f"{algorithm} requires hop_length % {128 * d} == 0")
+    if parts is not None and (n_fft // parts) % 128:
         raise ValueError(f"{algorithm} requires n_fft % {128 * parts} == 0")
+
+
+# the n_fft `csrc/log_mel_radix8dif.cu` takes (one template instance each)
+RADIX8_N_FFT = (1024, 2048, 4096, 8192)
+
+
+def cuda_route(algorithm: str, n_fft: int) -> str:
+    """The CUDA source (stem under csrc/) that a CUDA tensor of this
+    algorithm and n_fft runs; NotImplementedError, naming the algorithm's
+    ROADMAP.md row, past the kernels' limits."""
+    if n_fft in RADIX8_N_FFT:
+        return "log_mel_radix8dif"
+    if n_fft <= MIXED_RADIX_MAX_N_FFT:
+        return "log_mel_mixed_radix"
+    raise NotImplementedError(
+        f"the Hopper {algorithm} kernels take n_fft up to {MIXED_RADIX_MAX_N_FFT} "
+        f"(ROADMAP.md {_ROADMAP_ROW[algorithm]}); got n_fft={n_fft}")
 
 
 def log_mel_fused_reference(
@@ -74,7 +135,7 @@ def log_mel_fused_reference(
     normalize: bool = False, eps: float = 1e-8,
     spec_mask_bounds: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain torch version of both kernels, in the waveform's dtype: framing
+    """Plain torch version of every kernel, in the waveform's dtype: framing
     by unfold, window, matmul DFT, power, mel matmul, dB, then the epilogue:
     top_db, the mask of `spec_mask_bounds` (B, 4) if given, normalize."""
     db = log_mel_spectrogram(
@@ -108,12 +169,14 @@ def _complex_pairs(z: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def mel_bands(sample_rate: int, n_fft: int, n_mels: int, f_min: float, f_max: float,
               mel_scale: str, norm: str | None, device: torch.device):
-    """The banded mel filterbank on `device`, as both kernels take it.
+    """The banded mel filterbank on `device`, as the kernels take it.
 
     Each triangular filter is nonzero on a short band of bins, so the
     filterbank travels as per-mel [start, start + len) bin ranges beside
     the packed float32 weights of each band (about two weights per bin):
-    (starts (n_mels,) int32, offsets (n_mels + 1,) int32, weights (nnz,))."""
+    (starts (n_mels,) int32, offsets (n_mels + 1,) int32, weights (nnz,)).
+    An empty filter (128 HTK mels at n_fft 512 leave one) is an empty band:
+    its sum is 0, its dB the floor, as in the plain chain."""
     fb = _mel_filterbank_np(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm)
     starts, offsets, weights = [], [0], []
     for m in range(n_mels):
@@ -124,14 +187,6 @@ def mel_bands(sample_rate: int, n_fft: int, n_mels: int, f_min: float, f_max: fl
         offsets.append(offsets[-1] + hi - lo)
     return (_dev(starts, torch.int32, device), _dev(offsets, torch.int32, device),
             _dev(np.concatenate(weights), torch.float32, device))
-
-
-@functools.lru_cache(maxsize=8)
-def _twiddles_radix16dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Window and the radix-2 FFT's twiddles exp(-2πik/N), k < N/2."""
-    k = np.arange(n_fft // 2)
-    return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
-            _dev(_complex_pairs(np.exp(-2j * np.pi * k / n_fft)), torch.float32, device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -149,18 +204,33 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
             _dev(_complex_pairs(stages), torch.float32, device))
 
 
+@functools.lru_cache(maxsize=8)
+def _twiddles_mixed_radix(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Window and W_N^j = exp(-2πij/N) for every j < N, built in float64:
+    the FFT stages and the odd-factor combine index the one table."""
+    j = np.arange(n_fft)
+    return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
+            _dev(_complex_pairs(np.exp(-2j * np.pi * j / n_fft)), torch.float32, device))
+
+
 def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate: int,
                    n_fft: int, hop_length: int, n_mels: int, *, f_min: float,
                    f_max: float | None, top_db: float | None, mel_scale: str,
                    norm: str | None, normalize: bool, eps: float, dft_passes: int | None,
                    spec_mask_bounds: torch.Tensor | None) -> torch.Tensor:
-    """What both wrappers share: the checks, the CPU route to the plain
-    version, the reflect pad, the dB scratch, the epilogue launch and the
-    launch counts (on `wrapper`). `_KERNELS[algorithm]` names the source,
-    the n_fft check and the spectrum launch of the algorithm's own kernel."""
-    source, check_n_fft, spectrum = _KERNELS[algorithm]
-    _check_eligible(algorithm, n_fft, hop_length)
+    """What every wrapper shares: the JAX dispatcher's checks in its order
+    (`pallas_mel.py:1734-1755`, then the shape contract), the CPU route to
+    the plain version, the launch of `cuda_route`'s source and the launch
+    counts (on `wrapper`)."""
+    if spec_mask_bounds is not None and algorithm == "radix2":
+        raise ValueError("spec_mask_bounds requires a fused algorithm")
     check_dft_passes(dft_passes)
+    if dft_passes is not None and dft_passes >= 5 and algorithm not in (
+            "radix8dif_fused", "radix16dif_fused"):
+        raise ValueError(
+            f"dft_passes={dft_passes} (3-way split) requires radix8dif_fused"
+            f" or radix16dif_fused, got {algorithm}")
+    _check_eligible(algorithm, n_fft, hop_length)
     if waveform.dim() != 2:
         raise ValueError(f"waveform must be (B, L), got shape {tuple(waveform.shape)}")
     if spec_mask_bounds is not None:
@@ -176,7 +246,24 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
         raise TypeError(f"waveform must be float32, got {waveform.dtype}")
     if not waveform.is_contiguous():
         raise ValueError("waveform must be contiguous")
-    check_n_fft(n_fft)
+    out = run_source(cuda_route(algorithm, n_fft), waveform, sample_rate, n_fft, hop_length,
+                     n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+                     norm=norm, normalize=normalize, eps=eps, spec_mask_bounds=spec_mask_bounds)
+    if spec_mask_bounds is None:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_masked += 1
+    return out
+
+
+def run_source(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int,
+               hop_length: int, n_mels: int, *, f_min: float, f_max: float | None,
+               top_db: float | None, mel_scale: str, norm: str | None, normalize: bool,
+               eps: float, spec_mask_bounds: torch.Tensor | None) -> torch.Tensor:
+    """Launch CUDA source `source`'s spectrum kernel and the epilogue on a
+    checked, contiguous (B, L) float32 CUDA waveform; counts nothing. The
+    wrappers run `cuda_route`'s source through it; `chip_smoke.py` times
+    each source at the same shape."""
     b, length = waveform.shape
     t = stft_ops.num_frames(length, n_fft, hop_length)
     device = waveform.device
@@ -189,16 +276,12 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
     lib = _build.load(source)
     stream = torch.cuda.current_stream(device).cuda_stream
     dev_index = device.index if device.index is not None else torch.cuda.current_device()
-    spectrum(lib, dev_index, x, n_fft, hop_length, t, bands, db, stream)
+    _SPECTRA[source](lib, dev_index, x, n_fft, hop_length, t, bands, db, stream)
     bounds = None if spec_mask_bounds is None else spec_mask_bounds.contiguous()
     _build.launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
             int(top_db is not None), 0.0 if top_db is None else float(top_db),
             int(normalize), float(eps), None if bounds is None else bounds.data_ptr(),
             out.data_ptr(), stream)
-    if bounds is None:
-        wrapper.launches += 1
-    else:
-        wrapper.launches_masked += 1
     return out
 
 
@@ -210,7 +293,8 @@ def log_mel_radix16dif_fused(
     spec_mask_bounds: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 2048
-    == 0 (`csrc/log_mel_radix16dif.cu`).
+    == 0 (`csrc/log_mel_radix8dif.cu` at 2048/4096/8192, as config.yaml's
+    2048/512; other n_fft on `csrc/log_mel_mixed_radix.cu`).
 
     A CUDA tensor launches the hand-written kernel, or raises; a CPU tensor
     runs the plain version. `spec_mask_bounds`, a (B, 4) float32 tensor on
@@ -226,22 +310,6 @@ def log_mel_radix16dif_fused(
         spec_mask_bounds=spec_mask_bounds)
 
 
-def _check_n_fft_radix16dif(n_fft: int) -> None:
-    if n_fft & (n_fft - 1):
-        raise NotImplementedError(
-            "the Hopper radix16dif_fused kernel takes a power-of-two n_fft "
-            "(ROADMAP.md B1); got n_fft=%d" % n_fft)
-
-
-def _spectrum_radix16dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
-    window, twiddle = _twiddles_radix16dif(n_fft, x.device)
-    mel_start, mel_offset, mel_weight = bands
-    _build.launch(lib, lib.log_mel_spectrum_launch, dev_index, x.data_ptr(), x.shape[0],
-            x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
-            mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
-            mel_start.numel(), mel_weight.numel(), db.data_ptr(), stream)
-
-
 def log_mel_radix8dif_fused(
     waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
     n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
@@ -250,10 +318,10 @@ def log_mel_radix8dif_fused(
     spec_mask_bounds: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 1024
-    == 0 (`csrc/log_mel_radix8dif.cu`): the same function and the same two
-    forms as `log_mel_radix16dif_fused`, by radix-8 decimation in frequency,
-    one warp per frame. The analyzer's sub-second windows (n_fft 1024, hop
-    256) run it.
+    == 0 (`csrc/log_mel_radix8dif.cu` at the powers of two from 1024 to
+    8192; other n_fft on `csrc/log_mel_mixed_radix.cu`): the same function
+    and the same two forms as `log_mel_radix16dif_fused`. The analyzer's
+    sub-second windows (n_fft 1024, hop 256) run it.
     """
     return _log_mel_fused(
         log_mel_radix8dif_fused, "radix8dif_fused", waveform, sample_rate, n_fft,
@@ -262,11 +330,86 @@ def log_mel_radix8dif_fused(
         spec_mask_bounds=spec_mask_bounds)
 
 
-def _check_n_fft_radix8dif(n_fft: int) -> None:
-    if n_fft & (n_fft - 1) or n_fft > 8192:
-        raise NotImplementedError(
-            "the Hopper radix8dif_fused kernel takes n_fft/8 a power of two, "
-            "n_fft up to 8192 (ROADMAP.md B2); got n_fft=%d" % n_fft)
+def log_mel_radix4dif_fused(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 512
+    == 0 and hop % 128 == 0 (`csrc/log_mel_mixed_radix.cu`, or
+    `csrc/log_mel_radix8dif.cu` at n_fft 1024-8192, powers of two): the same
+    function and two forms as `log_mel_radix16dif_fused`. A 512/128
+    checkpoint and the analyzer's 0.064 s windows run it. `dft_passes` 5 and
+    6 raise, as in the JAX package (its 3-way split exists only for the
+    radix-8/16 kernels); 3 and 4 are checked and ignored.
+    """
+    return _log_mel_fused(
+        log_mel_radix4dif_fused, "radix4dif_fused", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
+
+
+def log_mel_radix4_fused(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 8 ==
+    0 and hop % 512 == 0 (the source `cuda_route` picks by n_fft), both
+    forms. Only an explicit `pallas_algorithm="radix4_fused"` reaches it,
+    at 2048/512 on `csrc/log_mel_radix8dif.cu`. The TPU
+    kernel's `group` of examples a grid cell has no counterpart here.
+    """
+    return _log_mel_fused(
+        log_mel_radix4_fused, "radix4_fused", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
+
+
+def log_mel_radix2_fused(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 4 ==
+    0 and hop % 256 == 0 (the source `cuda_route` picks by n_fft), both
+    forms. A 768/256 or 1280/256 checkpoint runs it, on
+    `csrc/log_mel_mixed_radix.cu`.
+    """
+    return _log_mel_fused(
+        log_mel_radix2_fused, "radix2_fused", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
+
+
+def log_mel_radix2(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 4 ==
+    0 and any hop (the source `cuda_route` picks by n_fft; at 800/200 and
+    400/160 `csrc/log_mel_mixed_radix.cu`): dB, then top_db and
+    normalize, as the JAX package runs them after its kernel
+    (`pallas_mel.py:1807-1814`). Only backend "pallas" reaches it.
+    `spec_mask_bounds` raises: the TPU kernel has no training form.
+    """
+    return _log_mel_fused(
+        log_mel_radix2, "radix2", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
 
 
 def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
@@ -279,27 +422,44 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> 
             stream)
 
 
-# algorithm -> (CUDA source, n_fft check, spectrum launch)
-_KERNELS = {
-    "radix16dif_fused": ("log_mel_radix16dif", _check_n_fft_radix16dif, _spectrum_radix16dif),
-    "radix8dif_fused": ("log_mel_radix8dif", _check_n_fft_radix8dif, _spectrum_radix8dif),
+def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
+    window, twiddle = _twiddles_mixed_radix(n_fft, x.device)
+    mel_start, mel_offset, mel_weight = bands
+    _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
+            x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
+            mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
+            mel_start.numel(), db.data_ptr(), stream)
+
+
+# CUDA source -> its spectrum launch
+_SPECTRA = {
+    "log_mel_radix8dif": _spectrum_radix8dif,
+    "log_mel_mixed_radix": _spectrum_mixed_radix,
 }
-# launch counts of each wrapper: the inference form, and the training form
-# (SpecAugment bounds)
-for _fn in (log_mel_radix16dif_fused, log_mel_radix8dif_fused):
+# the wrapper of each algorithm, and the launch counts of each: the inference
+# form, and the training form (SpecAugment bounds; never for radix2)
+WRAPPERS = {
+    "radix16dif_fused": log_mel_radix16dif_fused,
+    "radix8dif_fused": log_mel_radix8dif_fused,
+    "radix4dif_fused": log_mel_radix4dif_fused,
+    "radix4_fused": log_mel_radix4_fused,
+    "radix2_fused": log_mel_radix2_fused,
+    "radix2": log_mel_radix2,
+}
+for _fn in WRAPPERS.values():
     _fn.launches = 0
     _fn.launches_masked = 0
 
 # ctypes signatures of the C entry points in csrc/*.cu
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _EPILOGUE = [_I, _P, _I, _I, _I, _I, _F, _I, _F, _P, _P, _P]
-_build.declare("log_mel_radix16dif", {
-    "log_mel_spectrum_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                _I, _I, _P, _P],
-    "log_mel_epilogue_launch": _EPILOGUE,
-})
 _build.declare("log_mel_radix8dif", {
     "log_mel_radix8dif_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P],
+    "log_mel_epilogue_launch": _EPILOGUE,
+})
+_build.declare("log_mel_mixed_radix", {
+    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                   _I, _P, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
 })

@@ -126,11 +126,13 @@ class TestErrors:
 
     @pytest.mark.parametrize("n_fft", [3072, 5120, 16384])
     def test_unsupported_n_fft_names_its_row(self, n_fft):
-        """Eligible for the TPU kernel, but not for the Hopper one (n_fft/8
-        not a power of two, or past 8192): the CUDA route raises naming B2;
-        the CPU route runs the plain version."""
+        """Eligible for the TPU kernel, but not for the radix-8 Hopper
+        kernel (n_fft/8 not a power of two, or past 8192): the CUDA route
+        takes the mixed-radix kernel, up to its limit, past which it raises
+        naming B2; the CPU route runs the plain version."""
+        assert mel_kernels.cuda_route("radix8dif_fused", n_fft) == "log_mel_mixed_radix"
         with pytest.raises(NotImplementedError, match="B2"):
-            mel_kernels._KERNELS["radix8dif_fused"][1](n_fft)
+            mel_kernels.cuda_route("radix8dif_fused", 2 * mel_kernels.MIXED_RADIX_MAX_N_FFT)
         out = log_mel_radix8dif_fused(torch.zeros(1, n_fft), SR, n_fft, n_fft // 4, N_MELS)
         assert out.shape == (1, N_MELS, 5)
 
