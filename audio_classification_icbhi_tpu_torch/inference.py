@@ -129,14 +129,16 @@ class ClassifierEngine:
         return {"audio_path": str(audio_path), **self.classify_wave(wav)}
 
     def classify_files(self, audio_paths: list) -> list[dict]:
-        """Batched multi-file classification; a file that fails to decode
-        is reported and skipped."""
+        """Batched multi-file classification; a file that fails to load, for
+        whatever reason (the JAX engine catches every `Exception` here too:
+        a WAV declaring sample rate 0 fails in the resampler with
+        ZeroDivisionError), is reported and skipped."""
         wavs, ok_paths, results = [], [], []
         for p in audio_paths:
             try:
                 wavs.append(self._load_clip(p))
                 ok_paths.append(p)
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 print(f"Error processing {p}: {e}")
         if not wavs:
             return results

@@ -26,10 +26,9 @@ _MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
 _LOGSTEP = np.log(6.4) / 27.0
 
 # The kernel algorithm names of the JAX package's policy
-# (`ops/mel.py:497-531`), and the ones this port has a Hopper kernel for.
-# Every other name raises on a CUDA tensor until ROADMAP.md queue B ports it.
+# (`ops/mel.py:497-531`), each with a Hopper kernel in this port.
 PORTED_ALGORITHMS = ("radix16dif_fused", "radix8dif_fused", "radix4dif_fused",
-                     "radix4_fused", "radix2_fused", "radix2")
+                     "radix4_fused", "radix2_fused", "radix2", "bf16x3", "f32")
 # each algorithm's row in ROADMAP.md queue B
 _ROADMAP_ROW = {"radix16dif_fused": "B1", "radix8dif_fused": "B2", "radix4dif_fused": "B3",
                 "radix4_fused": "B4", "radix2_fused": "B5", "radix2": "B6",
@@ -235,20 +234,21 @@ class MelFrontend:
     algorithm the policy picks (`_pallas_algorithm`), and backend "auto"
     does so only for the fused algorithms (`_auto_pallas`,
     `ops/mel.py:483-487`); "radix2" and "bf16x3" then run the plain torch
-    chain, as the JAX package runs XLA there. Every algorithm but "bf16x3"
-    and "f32" has a Hopper port (`PORTED_ALGORITHMS`; the source each shape
-    runs is `mel_kernels.cuda_route`'s, by n_fft: the radix-8 kernel at
+    chain, as the JAX package runs XLA there. Every algorithm has a Hopper
+    port (`PORTED_ALGORITHMS`); the source each shape runs is
+    `mel_kernels.cuda_route`'s, by n_fft: the DFT GEMM kernel at n_fft % 4
+    != 0 (backend "pallas" picks "bf16x3" there), the radix-8 kernel at
     1024, 2048, 4096 and 8192, the mixed-radix kernel at every other n_fft
-    up to 16,384); "bf16x3" and "f32" on a kernel route raise
-    NotImplementedError naming ROADMAP.md row B7, and so does an n_fft past
-    the kernels' limit, naming the algorithm's row. Backends "xla" and
-    "xla_radix2", the JAX package's explicit non-Pallas paths, run the plain
-    chain. On a CPU tensor every backend runs the plain chain.
+    up to 16,384. Past that limit a kernel route raises
+    NotImplementedError naming the algorithm's ROADMAP.md row. Backends
+    "xla" and "xla_radix2", the JAX package's explicit non-Pallas paths, run
+    the plain chain. On a CPU tensor every backend runs the plain chain.
 
     `dft_passes` is validated as in the JAX package, where it picks the bf16
     split of the TPU kernels' DFT GEMMs. The Hopper kernels compute their
-    FFT and mel projection in float32, at least as accurate as every pass
-    budget, so they take the value and ignore it.
+    FFT (or, at n_fft % 4 != 0, a three-product TF32 DFT) and mel projection
+    to float32 accuracy, at least as accurate as every pass budget, so they
+    take the value and ignore it.
     """
 
     def __init__(
@@ -372,42 +372,24 @@ class MelFrontend:
                         spec_mask_bounds: torch.Tensor | None = None) -> torch.Tensor:
         """The algorithm `_pallas_algorithm` names, with the per-example
         epilogue (top_db, the SpecAugment mask of `spec_mask_bounds` (B, 4),
-        normalize) fused. On a CUDA tensor only a ported kernel runs; on a
-        CPU tensor the plain chain computes the same function. Bounds need a
-        fused algorithm, as in the JAX package (`pallas_mel.py:1734-1738`)."""
+        normalize) fused. On a CUDA tensor its kernel runs; on a CPU tensor
+        the plain chain computes the same function. Bounds need a fused
+        algorithm, as in the JAX package (`pallas_mel.py:1734-1738`)."""
         from audio_classification_icbhi_tpu_torch.ops import mel_kernels
-        from audio_classification_icbhi_tpu_torch.ops.augment import mask_from_bounds
 
         alg = self._pallas_algorithm()
+        if alg not in PORTED_ALGORITHMS:
+            raise ValueError(f"unknown algorithm {alg!r}")
         if spec_mask_bounds is not None and alg not in _FUSED_ALGORITHMS:
             raise ValueError("spec_mask_bounds requires a fused algorithm")
         lead = waveform.shape[:-1]
-        flat = waveform.reshape(-1, waveform.shape[-1])
-        if alg in PORTED_ALGORITHMS:
-            kernel = mel_kernels.WRAPPERS[alg]
-            out = kernel(
-                flat, self.sample_rate, self.n_fft, self.hop_length, self.n_mels,
-                f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,
-                mel_scale=self.mel_scale, norm=self.norm, normalize=normalize,
-                dft_passes=self.dft_passes, spec_mask_bounds=spec_mask_bounds,
-            )
-        elif alg in _ROADMAP_ROW and not flat.is_cuda:
-            out = log_mel_spectrogram(
-                flat, self.sample_rate, self.n_fft, self.hop_length, self.n_mels,
-                f_min=self.f_min, f_max=self.f_max, top_db=self.top_db,
-                mel_scale=self.mel_scale, norm=self.norm,
-            )
-            if spec_mask_bounds is not None:
-                out = mask_from_bounds(out, spec_mask_bounds)
-            if normalize:
-                out = normalize_spectrogram(out)
-        elif alg in _ROADMAP_ROW:
-            raise NotImplementedError(
-                f"front-end kernel {alg!r} has no Hopper port yet "
-                f"(ROADMAP.md queue B, row {_ROADMAP_ROW[alg]}); this port runs "
-                f"{PORTED_ALGORITHMS} on CUDA")
-        else:
-            raise ValueError(f"unknown algorithm {alg!r}")
+        out = mel_kernels.WRAPPERS[alg](
+            waveform.reshape(-1, waveform.shape[-1]), self.sample_rate, self.n_fft,
+            self.hop_length, self.n_mels, f_min=self.f_min, f_max=self.f_max,
+            top_db=self.top_db, mel_scale=self.mel_scale, norm=self.norm,
+            normalize=normalize, dft_passes=self.dft_passes,
+            spec_mask_bounds=spec_mask_bounds,
+        )
         return out.reshape(lead + out.shape[-2:])
 
     def __call__(self, waveform: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The log-mel front-end kernels on Hopper, and their one plain version.
 
-Two hand-written CUDA sources replace the six log-mel TPU kernels of
-`audio_classification_icbhi_tpu/ops/pallas_mel.py` that end in, or are
-followed by, the per-example epilogue `_fused_epilogue` (`:683`). One
-wrapper a TPU kernel, with the TPU kernel's shape contract:
+Three hand-written CUDA sources replace the seven log-mel TPU kernels of
+`audio_classification_icbhi_tpu/ops/pallas_mel.py`, each of which ends in,
+or is followed by, the per-example epilogue `_fused_epilogue` (`:683`) or
+its top_db / normalize. One wrapper a TPU kernel, with the TPU kernel's
+shape contract:
 
 - `log_mel_radix16dif_fused` replaces `_kernel_radix16dif_fused` (`:1270`,
   via `_log_mel_radix16dif_fused` `:1374`); n_fft % 2048 == 0;
@@ -17,14 +18,20 @@ wrapper a TPU kernel, with the TPU kernel's shape contract:
   hop % 256 == 0;
 - `log_mel_radix2` replaces `_kernel_radix2` (`:633`, via `_log_mel_radix2`
   `:1542`); any hop, dB only in the TPU package with top_db and normalize
-  after it, so no SpecAugment bounds.
+  after it, so no SpecAugment bounds;
+- `log_mel_bf16x3` and `log_mel_f32` replace `_kernel_bf16x3` (`:518`) and
+  `_kernel_f32` (`:497`), one `pallas_call` in `log_mel_pallas` (`:1681`);
+  any n_fft, any hop, dB only with top_db and normalize after it (`:1866`),
+  as for radix2.
 
-All six compute one function, so the source a CUDA tensor runs depends on
-n_fft alone (`cuda_route`): `csrc/log_mel_radix8dif.cu` at n_fft 1024, 2048,
-4096 and 8192, where it is the faster of the two (`chip_smoke.py` phase 16
-times both), and `csrc/log_mel_mixed_radix.cu` at every other n_fft up to
-`MIXED_RADIX_MAX_N_FFT`; both take any hop. Beyond that limit the CUDA route
-raises NotImplementedError naming the algorithm's ROADMAP.md row.
+All eight compute one function, so the source a CUDA tensor runs depends on
+n_fft alone (`cuda_route`): `csrc/log_mel_dft_gemm.cu`, a DFT product on the
+tensor cores, at n_fft % 4 != 0 (where the JAX policy picks bf16x3);
+`csrc/log_mel_radix8dif.cu` at n_fft 1024, 2048, 4096 and 8192, where it is
+the fastest (`chip_smoke.py` phases 16 and 18 time the sources side by side);
+`csrc/log_mel_mixed_radix.cu` at every other n_fft. All take any hop, up to
+one limit, `MIXED_RADIX_MAX_N_FFT`; beyond it the CUDA route raises
+NotImplementedError naming the algorithm's ROADMAP.md row.
 
 All compute the same function, (B, L) f32 waveform -> (B, n_mels, T) f32
 log-mel:
@@ -38,8 +45,8 @@ The fused wrappers have two forms, as the TPU kernels have (`with_masks`):
 the inference form, and the training form, which takes per-example
 SpecAugment bounds (B, 4) and zeroes those cells between the dB stage and
 normalize. Each wrapper counts its forms' launches apart: `launches` and
-`launches_masked`. On a CPU tensor every wrapper runs
-`log_mel_fused_reference`.
+`launches_masked` (which stays 0 for radix2, bf16x3 and f32: bounds raise).
+On a CPU tensor every wrapper runs `log_mel_fused_reference`.
 
 Each CUDA source's header note says what bounds its kernel on the card and
 what its design does about it; the epilogue kernel is
@@ -60,6 +67,7 @@ from audio_classification_icbhi_tpu_torch.ops import _build
 from audio_classification_icbhi_tpu_torch.ops.augment import mask_from_bounds
 from audio_classification_icbhi_tpu_torch.ops import stft as stft_ops
 from audio_classification_icbhi_tpu_torch.ops.mel import (
+    _FUSED_ALGORITHMS,
     _ROADMAP_ROW,
     _mel_filterbank_np,
     check_dft_passes,
@@ -72,7 +80,7 @@ from audio_classification_icbhi_tpu_torch.ops.mel import (
 # algorithm -> (n_fft divisor, d, parts). d: n_fft % hop == 0 and
 # (hop // d) % 128 == 0 ("hop_length % 128·d == 0"); None for radix2, which
 # takes any hop. parts: (n_fft // parts) % 128 == 0 ("n_fft % 128·parts"), or
-# None.
+# None. bf16x3 and f32 take any n_fft and any hop.
 _CONTRACTS = {
     "radix16dif_fused": (16, 1, 16),
     "radix8dif_fused": (8, 1, 8),
@@ -80,6 +88,8 @@ _CONTRACTS = {
     "radix4_fused": (8, 4, None),
     "radix2_fused": (4, 2, None),
     "radix2": (4, None, None),
+    "bf16x3": (1, None, None),
+    "f32": (1, None, None),
 }
 # the most shared memory a Hopper block can opt into, in bytes
 HOPPER_SMEM_OPTIN = 232_448
@@ -91,7 +101,8 @@ def mixed_radix_smem_bytes(n_fft: int) -> int:
     return 8 * n_fft + 8 * (n_fft // 2 + 1)
 
 
-# the kernels' n_fft limit: the largest power of two whose block fits (16,384)
+# the kernels' n_fft limit: the largest power of two whose mixed-radix block
+# fits (16,384); the one limit of every log-mel route, the DFT GEMM's too
 MIXED_RADIX_MAX_N_FFT = max(1 << k for k in range(32)
                             if mixed_radix_smem_bytes(1 << k) <= HOPPER_SMEM_OPTIN)
 
@@ -118,14 +129,16 @@ RADIX8_N_FFT = (1024, 2048, 4096, 8192)
 def cuda_route(algorithm: str, n_fft: int) -> str:
     """The CUDA source (stem under csrc/) that a CUDA tensor of this
     algorithm and n_fft runs; NotImplementedError, naming the algorithm's
-    ROADMAP.md row, past the kernels' limits."""
+    ROADMAP.md row, past the kernels' limit."""
+    if n_fft > MIXED_RADIX_MAX_N_FFT:
+        raise NotImplementedError(
+            f"the Hopper {algorithm} kernels take n_fft up to {MIXED_RADIX_MAX_N_FFT} "
+            f"(ROADMAP.md {_ROADMAP_ROW[algorithm]}); got n_fft={n_fft}")
+    if n_fft % 4:
+        return "log_mel_dft_gemm"
     if n_fft in RADIX8_N_FFT:
         return "log_mel_radix8dif"
-    if n_fft <= MIXED_RADIX_MAX_N_FFT:
-        return "log_mel_mixed_radix"
-    raise NotImplementedError(
-        f"the Hopper {algorithm} kernels take n_fft up to {MIXED_RADIX_MAX_N_FFT} "
-        f"(ROADMAP.md {_ROADMAP_ROW[algorithm]}); got n_fft={n_fft}")
+    return "log_mel_mixed_radix"
 
 
 def log_mel_fused_reference(
@@ -207,7 +220,8 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
 @functools.lru_cache(maxsize=8)
 def _twiddles_mixed_radix(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """Window and W_N^j = exp(-2πij/N) for every j < N, built in float64:
-    the FFT stages and the odd-factor combine index the one table."""
+    the mixed-radix FFT stages and odd-factor combine index the one table,
+    and the DFT GEMM builds its cos / sin operand from it."""
     j = np.arange(n_fft)
     return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
             _dev(_complex_pairs(np.exp(-2j * np.pi * j / n_fft)), torch.float32, device))
@@ -222,7 +236,7 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
     (`pallas_mel.py:1734-1755`, then the shape contract), the CPU route to
     the plain version, the launch of `cuda_route`'s source and the launch
     counts (on `wrapper`)."""
-    if spec_mask_bounds is not None and algorithm == "radix2":
+    if spec_mask_bounds is not None and algorithm not in _FUSED_ALGORITHMS:
         raise ValueError("spec_mask_bounds requires a fused algorithm")
     check_dft_passes(dft_passes)
     if dft_passes is not None and dft_passes >= 5 and algorithm not in (
@@ -412,6 +426,47 @@ def log_mel_radix2(
         spec_mask_bounds=spec_mask_bounds)
 
 
+def log_mel_bf16x3(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel at any n_fft and
+    hop: dB, then top_db and normalize, as the JAX package runs them after
+    `_kernel_bf16x3` (`pallas_mel.py:1866`). Backend "pallas" reaches it at
+    every n_fft % 4 != 0 (1001/250, 1022/511, 2050/512), which runs
+    `csrc/log_mel_dft_gemm.cu`; named, at other n_fft, the source
+    `cuda_route` picks. `spec_mask_bounds` raises, and `dft_passes` 5 and 6
+    raise, as in the JAX package; 3 and 4 are checked and ignored: the TPU's
+    bf16 hi/lo split becomes a TF32 one that meets the f32 budget.
+    """
+    return _log_mel_fused(
+        log_mel_bf16x3, "bf16x3", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
+
+
+def log_mel_f32(
+    waveform: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+    n_mels: int, *, f_min: float = 0.0, f_max: float | None = None,
+    top_db: float | None = None, mel_scale: str = "htk", norm: str | None = None,
+    normalize: bool = False, eps: float = 1e-8, dft_passes: int | None = None,
+    spec_mask_bounds: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The same function as `log_mel_bf16x3`, for `_kernel_f32` (`:497`),
+    which runs its DFT at f32 precision on the TPU. Only naming it
+    (`pallas_algorithm="f32"`) reaches it; it runs the same sources.
+    """
+    return _log_mel_fused(
+        log_mel_f32, "f32", waveform, sample_rate, n_fft,
+        hop_length, n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
+        norm=norm, normalize=normalize, eps=eps, dft_passes=dft_passes,
+        spec_mask_bounds=spec_mask_bounds)
+
+
 def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
     window, twiddle_rn, twiddle_fft = _twiddles_radix8dif(n_fft, x.device)
     mel_start, mel_offset, mel_weight = bands
@@ -422,10 +477,13 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> 
             stream)
 
 
-def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
+def _spectrum_twiddle_table(launch: str, lib, dev_index, x, n_fft, hop, t, bands, db,
+                            stream) -> None:
+    """The spectrum launch of the two sources that take the window and the
+    one W_N^j table (`_twiddles_mixed_radix`); `launch` names the entry point."""
     window, twiddle = _twiddles_mixed_radix(n_fft, x.device)
     mel_start, mel_offset, mel_weight = bands
-    _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
+    _build.launch(lib, getattr(lib, launch), dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
             mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
             mel_start.numel(), db.data_ptr(), stream)
@@ -434,10 +492,12 @@ def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -
 # CUDA source -> its spectrum launch
 _SPECTRA = {
     "log_mel_radix8dif": _spectrum_radix8dif,
-    "log_mel_mixed_radix": _spectrum_mixed_radix,
+    "log_mel_mixed_radix": functools.partial(_spectrum_twiddle_table,
+                                             "log_mel_mixed_radix_launch"),
+    "log_mel_dft_gemm": functools.partial(_spectrum_twiddle_table, "log_mel_dft_gemm_launch"),
 }
 # the wrapper of each algorithm, and the launch counts of each: the inference
-# form, and the training form (SpecAugment bounds; never for radix2)
+# form, and the training form (SpecAugment bounds; only the fused algorithms)
 WRAPPERS = {
     "radix16dif_fused": log_mel_radix16dif_fused,
     "radix8dif_fused": log_mel_radix8dif_fused,
@@ -445,6 +505,8 @@ WRAPPERS = {
     "radix4_fused": log_mel_radix4_fused,
     "radix2_fused": log_mel_radix2_fused,
     "radix2": log_mel_radix2,
+    "bf16x3": log_mel_bf16x3,
+    "f32": log_mel_f32,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0
@@ -458,8 +520,7 @@ _build.declare("log_mel_radix8dif", {
                                  _I, _I, _P, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
 })
-_build.declare("log_mel_mixed_radix", {
-    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                   _I, _P, _P],
-    "log_mel_epilogue_launch": _EPILOGUE,
-})
+_TABLE_SPECTRUM = [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P]
+for _source in ("log_mel_mixed_radix", "log_mel_dft_gemm"):
+    _build.declare(_source, {f"{_source}_launch": _TABLE_SPECTRUM,
+                             "log_mel_epilogue_launch": _EPILOGUE})

@@ -50,11 +50,19 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int, *,
                  center: bool = True) -> torch.Tensor:
-    """Slice a (..., length) signal into overlapping frames (..., T, n_fft).
-    The result is a strided view of the (padded) signal; its frame count is
-    `num_frames`."""
+    """Slice a (..., length) signal into overlapping frames (..., T, n_fft),
+    T = `num_frames`. The result is a strided view of the (padded) signal.
+
+    At odd n_fft the center padding (n_fft // 2 a side) can leave the last
+    frame one sample short. The JAX package gathers that frame with its
+    index clamped to the padded signal's last sample, so the padded signal
+    is extended by its own last sample here, as often as the frame needs."""
+    t = num_frames(x.shape[-1], n_fft, hop_length, center=center)
     if center:
         x = reflect_pad(x, n_fft // 2)
+        short = (t - 1) * hop_length + n_fft - x.shape[-1]
+        if short > 0:
+            x = torch.cat([x, x[..., -1:].expand(*x.shape[:-1], short)], dim=-1)
     return x.unfold(-1, n_fft, hop_length)
 
 

@@ -72,7 +72,23 @@ toolkit. Phases:
    `analyze.main` at 1 s and 0.064 s windows, and the serving
    engine at 768/256 (row 5), each with the launch counts read around it
    and the card held against the CPU; wav -> logits clips/s and
-   classify_wave latency at 512/128.
+   classify_wave latency at 512/128;
+18. TPU-kernel row 7 (`bf16x3` / `f32`) on the DFT GEMM log-mel kernel at
+   n_fft % 4 != 0 (1001/250, 505/126, 1022/511, 2050/512): both names against
+   their plain version in float64 on seeded noise at 5 and 1 s, dB only and
+   with top_db 80 + normalize, and against the float64 golden over the
+   parity battery (`parity.parity`; unrestricted at n_fft >= 1536, in the
+   25 dB active region below); the main path with the counts zeroed before
+   and read after: wav -> logits at 1001/250, 128 clips of 5 s, through
+   `features_from_wavs(MelFrontend(backend="pallas"), ...)` and the bf16
+   LightweightCNN, held against the CPU and timed, `MelFrontend(backend=
+   "pallas")` at 1022/511 and `pallas_algorithm="f32"` at 1001/250 and
+   2048/512; the odd-n_fft framing repair on the card (`ClassifierEngine`
+   under backend "auto" at 1001/250: 321 frames, the plain chain, held
+   against the CPU); each name timed at 128 x 5 s beside its bound, plain
+   version and yardstick; the new source beside the radix-8 one at 2048/512
+   (`run_source`); and `python -m audio_classification_icbhi_tpu_torch.parity`
+   at 2048/512, every row within its gate.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -96,6 +112,7 @@ import numpy as np
 import torch
 
 from audio_classification_icbhi_tpu_torch import analyze
+from audio_classification_icbhi_tpu_torch import parity
 from audio_classification_icbhi_tpu_torch import train as train_entry
 from audio_classification_icbhi_tpu_torch.analyzers import AnalyzerEngine
 from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
@@ -440,6 +457,7 @@ def main() -> int:
         conv_launches = phase15_fused_cnn(dev, rng, card, Path(tmp), recording)
         mixed = phase16_mixed_radix(dev, card)
         mixed_launches = phase17_entry_points(dev, rng, card, Path(tmp), corpus, recording)
+        dft_gemm = phase18_dft_gemm(dev, card, Path(tmp))
     for alg, n in mixed_launches.items():
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
@@ -458,7 +476,9 @@ def main() -> int:
             *((f"log_mel_{alg}", line, n_fft, mixed[alg])
               for alg, (line, (n_fft, _), _) in MIXED_ROWS.items()),
             ("log_mel_radix4dif_fused_masked", MIXED_ROWS["radix4dif_fused"][0], 512,
-             mixed["radix4dif_fused_masked"]))
+             mixed["radix4dif_fused_masked"]),
+            *((f"log_mel_{alg}", line, B7_MAIN[0], dft_gemm[alg])
+              for alg, line in (("bf16x3", ":518"), ("f32", ":497"))))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{csrc}{mel_kernels.cuda_route(name[8:].removesuffix('_masked'), n_fft)}.cu",
@@ -1521,16 +1541,16 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
     return rows
 
 
-def compare_sources(dev, card: str, rng: np.random.Generator) -> None:
-    """Both log-mel sources at each shape of `SOURCE_SHAPES`, through
+def compare_sources(dev, card: str, rng: np.random.Generator, shapes=SOURCE_SHAPES,
+                    sources=("log_mel_radix8dif", "log_mel_mixed_radix"), phase: int = 16) -> None:
+    """Two log-mel sources at each of `shapes`, through
     `mel_kernels.run_source` (launches counted nowhere): each against the
     plain version in float64 (normalize on; tol 2e-3), then timed by CUDA
-    events, alternating, twice each. `cuda_route` sends these n_fft to
-    log_mel_radix8dif.cu; the lines say where each source wins."""
+    events, alternating, twice each. `cuda_route` sends these n_fft to the
+    first source; the lines say where each source wins."""
     kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None,
               normalize=True, eps=1e-8)
-    sources = ("log_mel_radix8dif", "log_mel_mixed_radix")
-    for alg, b, length, n_fft, hop, masked in SOURCE_SHAPES:
+    for alg, b, length, n_fft, hop, masked in shapes:
         check(mel_kernels.cuda_route(alg, n_fft) == sources[0], f"{alg} at {n_fft} routes")
         x = torch.from_numpy(synth_clips(rng, b, length)).to(dev)
         bounds = (edge_bounds(b, 1 + length // hop, torch.Generator().manual_seed(16)).to(dev)
@@ -1546,7 +1566,7 @@ def compare_sources(dev, card: str, rng: np.random.Generator) -> None:
         for _ in range(2):
             for s, run in runs.items():
                 times[s].append(cuda_ms(run, iters))
-        print(f"phase 16: [{card}] sources at {alg} {n_fft}/{hop} B={b} x {length / SR:g} s"
+        print(f"phase {phase}: [{card}] sources at {alg} {n_fft}/{hop} B={b} x {length / SR:g} s"
               f"{', masked' if masked else ''}, normalize: " + "; ".join(
                   f"{s} {times[s][0]:.4f} / {times[s][1]:.4f} ms (max|- plain f64| "
                   f"{errs[s]:.3e})" for s in sources))
@@ -1733,6 +1753,195 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
           f"{np.median(lat_ms):.3f} ms, p90 {np.percentile(lat_ms, 90):.3f} ms over 50 calls")
     print(f"phase 17: entry-point launches {launches}")
     return launches
+
+
+# phase 18: TPU-kernel row 7 on the DFT GEMM log-mel kernel
+# (`csrc/log_mel_dft_gemm.cu`). Its shapes are the n_fft % 4 != 0 ones, where
+# the JAX policy picks bf16x3 (1001 = 7 * 11 * 13, 505 = 5 * 101, 1022 =
+# 2 * 511, 2050 = 2 * 1025); the main one, where both names are timed and
+# the full-width path runs, is 1001/250 (321 frames at 5 s).
+B7_SHAPES = ((1001, 250), (505, 126), (1022, 511), (2050, 512))
+B7_MAIN = (1001, 250)
+B7_ALGORITHMS = ("bf16x3", "f32")
+
+
+def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
+    """Row 7 through its two wrappers: against the plain version in float64
+    on seeded noise (B 3, one example 26 dB louder) at 5 and 1 s, dB only
+    (tol 1e-3) and with top_db 80 + normalize (2e-3); against the float64
+    golden over the parity battery at 5 and 1 s through `parity.parity`,
+    unrestricted at n_fft >= 1536 and in the 25 dB active region below. Then
+    the main path with the counts zeroed before and read after: wav ->
+    logits at 1001/250 through `features_from_wavs(MelFrontend(backend=
+    "pallas"), ...)` and a seeded bf16 LightweightCNN (128 clips of 5 s; the
+    first 16 held against the same pipeline on the CPU), `MelFrontend(
+    backend="pallas")` at 1022/511 and `pallas_algorithm="f32"` at 1001/250
+    and 2048/512 (8 clips, against the CPU in float64). Then the framing
+    repair on the card (`ClassifierEngine` under "auto" at 1001/250: 321
+    frames, no kernel), the timings, the new source beside the radix-8 one
+    at 2048/512, and the parity entry point at 2048/512. Returns each name's
+    kernel-line numbers."""
+    rng = np.random.default_rng(18)  # its own stream: the inputs do not depend on earlier phases
+    wrappers = mel_kernels.WRAPPERS
+    errs = {alg: [] for alg in B7_ALGORITHMS}
+    epilogue = dict(top_db=80.0, normalize=True)
+    for n_fft, hop in B7_SHAPES:
+        check(mel_kernels.cuda_route("bf16x3", n_fft) == "log_mel_dft_gemm",
+              f"n_fft {n_fft} routes to the DFT GEMM kernel")
+        for duration in (5.0, 1.0):
+            length = int(SR * duration)
+            x = (0.1 * rng.standard_normal((3, length))).astype(np.float32)
+            x[1] *= 20.0
+            xt = torch.from_numpy(x).to(dev)
+            for kw, tol in (({}, 1e-3), (epilogue, 2e-3)):
+                want = mel_kernels.log_mel_fused_reference(xt.double(), SR, n_fft, hop, N_MELS,
+                                                           **kw)
+                for alg in B7_ALGORITHMS:
+                    got = wrappers[alg](xt, SR, n_fft, hop, N_MELS, **kw)
+                    torch.cuda.synchronize()
+                    check(got.shape == (3, N_MELS, 1 + length // hop), f"{alg} shape")
+                    check(bool(torch.isfinite(got).all()), f"finite {alg} output")
+                    err = (got.double() - want).abs().max().item()
+                    errs[alg].append(err)
+                    print(f"phase 18: log_mel_{alg} {n_fft}/{hop} B=3 x {duration:g} s "
+                          f"{'top_db 80 + normalize' if kw else 'dB'}: max|kernel - plain f64| = "
+                          f"{err:.3e} (tol {tol:g})")
+                    check(err <= tol, f"{alg} vs plain at {n_fft}/{hop}, {duration} s, {kw}")
+    for n_fft, hop in B7_SHAPES:
+        unrestricted = n_fft >= 1536
+        for r in parity.parity(dev, n_fft, hop, (5.0, 1.0), B7_ALGORITHMS):
+            print(f"phase 18: golden {n_fft}/{hop} {r['duration_s']:g} s {r['algorithm']}: "
+                  f"max|- f64 golden| = {r['max_abs_db_err']:.3e} dB all cells, "
+                  f"{r['max_abs_db_err_25db']:.3e} active (tol 1e-3 "
+                  f"{'unrestricted' if unrestricted else 'active'})")
+            check(r["within_budget_unrestricted" if unrestricted else "within_budget"],
+                  f"{r['algorithm']} vs golden at {n_fft}/{hop}, {r['duration_s']} s")
+
+    # the main path: wav -> logits at 1001/250 as bench.py:build_pipeline(
+    # backend="pallas") builds it, and the other front ends that reach row 7
+    n_fft, hop = B7_MAIN
+    ckpt = seeded_checkpoint(tmp / "serve_1001.ckpt", mixed_precision=True, head_scale=15.0,
+                             n_fft=n_fft, hop_length=hop)
+    engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+    fe = MelFrontend.from_config(engine.config, backend="pallas")
+    check(fe._pallas_algorithm() == "bf16x3" and fe.num_frames == 321,
+          "backend 'pallas' picks bf16x3 at 1001/250, 321 frames")
+    clips = synth_clips(rng, BATCH)
+    x = torch.from_numpy(clips).to(dev)
+
+    def wav_to_logits():
+        return engine.model(features_from_wavs(fe, x))
+
+    others = ((1022, 511, None), (1001, 250, "f32"), (2048, 512, "f32"))
+    zero_counts()
+    with torch.inference_mode():
+        logits = wav_to_logits()
+        outs = [MelFrontend(n_fft=nf, hop_length=hp, duration=5.0, backend="pallas",
+                            pallas_algorithm=alg)(x[:8]) for nf, hp, alg in others]
+    torch.cuda.synchronize()
+    launches = {alg: wrappers[alg].launches for alg in B7_ALGORITHMS}
+    print(f"phase 18: main path launches {launches}")
+    check(all(n > 0 for n in launches.values()) and all(
+        fn.launches + fn.launches_masked == 0 for a, fn in wrappers.items()
+        if a not in B7_ALGORITHMS) and all(wrappers[a].launches_masked == 0
+                                           for a in B7_ALGORITHMS),
+          "the row-7 paths launched both row-7 wrappers and no other log-mel kernel")
+    check(logits.shape == (BATCH, 4) and bool(torch.isfinite(logits).all()), "finite logits")
+    cpu_engine = ClassifierEngine(ckpt, batch_size=16, device="cpu")
+    with torch.inference_mode():
+        cpu_logits = cpu_engine.model(features_from_wavs(fe, torch.from_numpy(clips[:16])))
+    probs = torch.softmax(logits[:16].float().cpu(), -1)
+    cpu_probs = torch.softmax(cpu_logits.float(), -1)
+    err = (probs - cpu_probs).abs().max().item()
+    spread = (cpu_probs - cpu_probs.mean(0)).abs().max().item()
+    print(f"phase 18: wav->logits at {n_fft}/{hop}, backend 'pallas', bf16 CNN, head x15: "
+          f"max|cuda - cpu| probability (16 clips) {err:.3e} (tol 5e-3), spread {spread:.3e} "
+          f"(>= 2e-2)")
+    check(err <= 5e-3 and spread >= 2e-2, "the 1001/250 pallas path, cuda vs cpu")
+    x64 = torch.from_numpy(clips[:8]).double()
+    for (nf, hp, alg), got in zip(others, outs):
+        want = MelFrontend(n_fft=nf, hop_length=hp, duration=5.0, backend="pallas",
+                           pallas_algorithm=alg)(x64)
+        err = (got.double().cpu() - want).abs().max().item()
+        print(f"phase 18: MelFrontend(backend='pallas', pallas_algorithm={alg!r}) {nf}/{hp}, "
+              f"8 x 5 s: max|cuda - cpu f64| = {err:.3e} (tol 2e-3)")
+        check(err <= 2e-3, f"MelFrontend {nf}/{hp} {alg}, cuda vs cpu")
+
+    # the framing repair on the card: under "auto" bf16x3 runs the plain chain
+    # on CUDA (as the JAX package runs XLA), with 1 + L // hop frames
+    before = {a: (fn.launches, fn.launches_masked) for a, fn in wrappers.items()}
+    auto = ClassifierEngine(ckpt, batch_size=16, device="cuda")
+    with torch.inference_mode():
+        feats = features_from_wavs(auto.frontend, x[:16])
+    got = auto.predict_probs(clips[:16])
+    want = cpu_engine.predict_probs(clips[:16])
+    torch.cuda.synchronize()
+    err = float(np.abs(got - want).max())
+    print(f"phase 18: ClassifierEngine at {n_fft}/{hop}, backend 'auto' (plain chain on the "
+          f"card): features {tuple(feats.shape)}, max|cuda - cpu| probability {err:.3e} "
+          f"(tol 5e-3)")
+    check(auto.frontend.num_frames == 321 and tuple(feats.shape) == (16, N_MELS, 321, 1),
+          "321 frames at 1001/250 on the card")
+    check(err <= 5e-3 and before == {a: (fn.launches, fn.launches_masked)
+                                     for a, fn in wrappers.items()},
+          "the auto engine at 1001/250 ran the plain chain and matches the cpu")
+
+    # speed: the full-width path, then each name beside its bound, plain
+    # version and yardstick at 128 x 5 s, and the kernel alone at the other
+    # shapes
+    with torch.inference_mode():
+        for _ in range(2):
+            wav_to_logits()
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            wav_to_logits()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"phase 18: [{card}] wav->logits at {n_fft}/{hop} (321 frames), backend "
+              f"'pallas', batch {BATCH}, bf16 CNN: {BATCH * reps / dt:.1f} clips/s "
+              f"({dt / reps * 1e3:.3f} ms per batch)")
+        steps = 2
+        kernels, busy_us, wall_us = trace_device(wav_to_logits, steps)
+    print(f"phase 18: [{card}] traced {steps} steps: device busy {busy_us / steps:.1f} us/step "
+          f"of {wall_us / steps:.1f} us/step wall ({100 * busy_us / wall_us:.1f}%)")
+    for e in kernels[:8]:
+        print(f"phase 18:   {e.self_device_time_total / steps:9.1f} us/step "
+              f"{e.count // steps:3d}x  {kernel_name(e.key)}")
+    rows = {}
+    kw = dict(normalize=True)
+    bound_ms, bound_by, floors = bound(BATCH, CLIP, dev, n_fft, hop)
+    plain_ms = cuda_ms(lambda: mel_kernels.log_mel_fused_reference(
+        x, SR, n_fft, hop, N_MELS, **kw), iters=5)
+    library_ms = cuda_ms(yardstick(x, n_fft, hop), iters=10)
+    for alg in B7_ALGORITHMS:
+        kernel_ms = cuda_ms(lambda: wrappers[alg](x, SR, n_fft, hop, N_MELS, **kw), iters=10)
+        print(f"phase 18: [{card}] log_mel_{alg} {n_fft}/{hop} B={BATCH} x 5 s: kernel "
+              f"{kernel_ms:.4f} ms, plain f32 {plain_ms:.4f} ms, torch.stft yardstick "
+              f"{library_ms:.4f} ms (one frame fewer: torch.stft pads an odd n_fft by "
+              f"(n_fft - 1) / 2), bound {bound_ms:.4f} ms ({bound_by}; bytes "
+              f"{floors['bytes']:.4f}, operations {floors['operations']:.4f}, bytes with the "
+              f"dB scratch {floors['bytes_with_scratch']:.4f})")
+        rows[alg] = {"launches": launches[alg], "max_abs_err": max(errs[alg]), "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+    for nf, hp in B7_SHAPES[1:]:
+        kernel_ms = cuda_ms(lambda: wrappers["bf16x3"](x, SR, nf, hp, N_MELS, **kw), iters=5)
+        print(f"phase 18: [{card}] log_mel_bf16x3 {nf}/{hp} B={BATCH} x 5 s: kernel "
+              f"{kernel_ms:.4f} ms, bound {bound(BATCH, CLIP, dev, nf, hp)[0]:.4f} ms")
+    compare_sources(dev, card, rng, shapes=(("bf16x3", BATCH, CLIP, 2048, 512, False),),
+                    sources=("log_mel_radix8dif", "log_mel_dft_gemm"), phase=18)
+
+    # the parity entry point at the JAX package's shape: every row within
+    # its gate (unrestricted: n_fft 2048 >= 1536)
+    out = tmp / "parity_2048.jsonl"
+    check(parity.main(["--out", str(out)]) == 0, "parity entry point")
+    results = [json.loads(line) for line in out.read_text().splitlines()]
+    check(len(results) == 30 and all(r["platform"] == "gpu" and r["within_budget_unrestricted"]
+                                     for r in results),
+          "every parity row at 2048/512 within 1e-3 dB unrestricted")
+    return rows
 
 
 if __name__ == "__main__":

@@ -85,7 +85,10 @@ def test_same_answers_from_both_engines(ckpts, wavs, mixed_precision, atol):
     np.testing.assert_allclose(list(one["probabilities"].values()), got[0], atol=atol)
 
 
-def test_files_resampling_and_describe(ckpts, wavs, tmp_path):
+def test_files_resampling_and_describe(ckpts, wavs, tmp_path, capsys):
+    """classify_files reports and skips a file that is no WAV, and one that
+    declares sample rate 0 (ZeroDivisionError in the resampler), as the JAX
+    engine does; before the repair the port stopped at the second."""
     eng = ClassifierEngine(ckpts[True], batch_size=4, device="cpu")
     eng.warmup_latency()
     paths = []
@@ -95,8 +98,15 @@ def test_files_resampling_and_describe(ckpts, wavs, tmp_path):
         paths.append(p)
     bad = tmp_path / "bad.wav"
     bad.write_bytes(b"not a wav")
-    results = eng.classify_files(paths + [bad])
+    zero_rate = tmp_path / "zero_rate.wav"
+    write_wav(zero_rate, wavs[3], 0)
+    capsys.readouterr()
+    results = eng.classify_files(paths + [bad, zero_rate])
     assert [r["audio_path"] for r in results] == [str(p) for p in paths]
+    reported = capsys.readouterr().out
+    assert f"Error processing {bad}" in reported and f"Error processing {zero_rate}" in reported
+    want = JaxEngine(ckpts[True], batch_size=4).classify_files(paths + [bad, zero_rate])
+    assert [r["audio_path"] for r in want] == [r["audio_path"] for r in results]
     single = eng.classify_file(paths[0])
     assert single["predicted_class"] == results[0]["predicted_class"]
     # batch 1 against a padded batch of 4: bf16 sums in another order

@@ -275,12 +275,13 @@ def test_past_the_limit_names_the_row(algorithm, row):
 
 
 def test_only_b7_stays_unported():
-    """On a CUDA tensor `MelFrontend` raises NotImplementedError only for
-    bf16x3 / f32 (B7): every other algorithm of the JAX policy has a
-    wrapper."""
-    assert set(port_mel.PORTED_ALGORITHMS) == set(mel_kernels.WRAPPERS)
-    assert {a: row for a, row in port_mel._ROADMAP_ROW.items()
-            if a not in port_mel.PORTED_ALGORITHMS} == {"bf16x3": "B7", "f32": "B7"}
+    """Every algorithm of the JAX policy has a wrapper, B7's bf16x3 and f32
+    too (the name is kept from when B7 was the one left): `MelFrontend`
+    raises NotImplementedError on a CUDA tensor only past the n_fft limit."""
+    assert set(port_mel.PORTED_ALGORITHMS) == set(mel_kernels.WRAPPERS) == set(
+        port_mel._ROADMAP_ROW)
+    assert {a: port_mel._ROADMAP_ROW[a] for a in ("bf16x3", "f32")} == {"bf16x3": "B7",
+                                                                        "f32": "B7"}
     assert mel_kernels.MIXED_RADIX_MAX_N_FFT == 16384
     assert mel_kernels.mixed_radix_smem_bytes(16384) == 196_616
     for n_fft, hop, alg in ((512, 128, "radix4dif_fused"), (768, 256, "radix2_fused"),
