@@ -25,8 +25,10 @@ shape contract:
   as for radix2.
 
 All eight compute one function, so the source a CUDA tensor runs depends on
-n_fft alone (`cuda_route`): `csrc/log_mel_dft_gemm.cu`, a DFT product on the
-tensor cores, at n_fft % 4 != 0 (where the JAX policy picks bf16x3);
+n_fft alone (`cuda_route`): `csrc/log_mel_dft_gemm.cu`, a folded real-input
+DFT on `wgmma` (TF32, three hi/lo products) fed by a TMA ring, at n_fft % 4
+!= 0 (where the JAX policy picks bf16x3), with its constants built once per
+(n_fft, device) (`_dft_fold_constants`, 1.08 GB at n_fft 16,383);
 `csrc/log_mel_radix8dif.cu` at n_fft 1024, 2048, 4096 and 8192, where it is
 the fastest (`chip_smoke.py` phases 16 and 18 time the sources side by side);
 `csrc/log_mel_mixed_radix.cu` at every other n_fft. All take any hop, up to
@@ -59,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -202,6 +205,28 @@ def mel_bands(sample_rate: int, n_fft: int, n_mels: int, f_min: float, f_max: fl
             _dev(np.concatenate(weights), torch.float32, device))
 
 
+@functools.lru_cache(maxsize=16)
+def mel_bin_table(sample_rate: int, n_fft: int, n_mels: int, f_min: float, f_max: float,
+                  mel_scale: str, norm: str | None, device: torch.device) -> torch.Tensor:
+    """The mel filterbank by bin, as `csrc/log_mel_dft_gemm.cu` takes it:
+    (bins padded to its tile, 4) int32, each bin's (even mel, its weight's
+    float32 bits, odd mel, its weight's bits), -1 and 0 where the bin lies in
+    no band of that parity. A triangular filter overlaps only its
+    neighbours, so a bin lies in at most one band of each parity; a
+    filterbank where it does not raises."""
+    fb = _mel_filterbank_np(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm)
+    table = np.zeros((dft_fold_geometry(n_fft)[2], 4), dtype=np.int32)
+    table[:, 0::2] = -1
+    for k, m in zip(*np.nonzero(fb)):
+        slot = 2 * (m % 2)
+        if table[k, slot] >= 0:
+            raise ValueError(f"bin {k} lies in two mel bands of one parity ({table[k, slot]} "
+                             f"and {m}): the DFT GEMM kernel takes triangular filterbanks")
+        table[k, slot] = m
+        table[k, slot + 1] = np.float32(fb[k, m]).view(np.int32)
+    return _dev(table, torch.int32, device)
+
+
 @functools.lru_cache(maxsize=8)
 def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """Window; the class twiddles W_N^{rn} as (4, E) for r = 1..4, n < E;
@@ -220,11 +245,64 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
 @functools.lru_cache(maxsize=8)
 def _twiddles_mixed_radix(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """Window and W_N^j = exp(-2πij/N) for every j < N, built in float64:
-    the mixed-radix FFT stages and odd-factor combine index the one table,
-    and the DFT GEMM builds its cos / sin operand from it."""
+    the mixed-radix FFT stages and odd-factor combine index the one table."""
     j = np.arange(n_fft)
     return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
             _dev(_complex_pairs(np.exp(-2j * np.pi * j / n_fft)), torch.float32, device))
+
+
+# `csrc/log_mel_dft_gemm.cu`'s tiles: folded samples a TMA box row (128
+# bytes), bins a wgmma (its N) and frame rows a block
+DFT_K_CHUNK, DFT_BIN_TILE, DFT_TILE_ROWS = 32, 72, 128
+
+
+def dft_fold_geometry(n_fft: int) -> tuple[int, int, int]:
+    """(K, K padded, bins padded) of the folded DFT: K = n_fft // 2 folded
+    samples (n = 1 .. K) padded to the 32-float TMA box row, and n_fft // 2 + 1
+    bins padded to the 72-bin tile."""
+    k = n_fft // 2
+    return (k, -(-k // DFT_K_CHUNK) * DFT_K_CHUNK,
+            -(-(n_fft // 2 + 1) // DFT_BIN_TILE) * DFT_BIN_TILE)
+
+
+def dft_fold_matrices(n_fft: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The folded real DFT's windowed cos and sin matrices, (n_fft // 2 + 1
+    bins, K) float64, K = n_fft // 2: C[k, n - 1] = c_n w_n cos(2π ((n k)
+    mod N) / N) and S[k, n - 1] = w_n sin(2π ((n k) mod N) / N) for n = 1 ..
+    K, w the periodic Hann window, c_n = 1/2 for the even-N middle sample
+    n = N / 2 (its fold x_n + x_{N-n} counts it twice) and 1 otherwise. With
+    s_n = x_n + x_{N-n} and d_n = x_n - x_{N-n}, Re X = s C^T and Im X =
+    -d S^T (`csrc/log_mel_dft_gemm.cu`'s header derives it)."""
+    k_half = n_fft // 2
+    n = torch.arange(1, k_half + 1, dtype=torch.int64, device=device)
+    bins = torch.arange(n_fft // 2 + 1, dtype=torch.int64, device=device)
+    angle = (2.0 * math.pi / n_fft) * ((bins[:, None] * n[None, :]) % n_fft).double()
+    w = 0.5 - 0.5 * torch.cos((2.0 * math.pi / n_fft) * n.double())
+    c = torch.where(2 * n == n_fft, 0.5, 1.0).double() * w
+    return c * torch.cos(angle), w * torch.sin(angle)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits, the 13 low bits zero), to
+    nearest with ties away from zero: the kernels' `to_tf32`."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _dft_fold_constants(n_fft: int, device: torch.device) -> torch.Tensor:
+    """`csrc/log_mel_dft_gemm.cu`'s constant operand, (4, bins padded, K
+    padded) float32: C_hi, C_lo, S_hi, S_lo, K-major, zero in the padding.
+    Built on `device` in float64 (`dft_fold_matrices`) and split into TF32
+    hi = tf32(m) and lo = tf32(m - hi): 4.1 MB at n_fft 1001, 1.08 GB at
+    16,383."""
+    k_half, k_pad, bins_pad = dft_fold_geometry(n_fft)
+    out = torch.zeros((4, bins_pad, k_pad), dtype=torch.float32, device=device)
+    for i, m in enumerate(dft_fold_matrices(n_fft, device)):
+        hi = tf32_round(m.float())
+        out[2 * i, :m.shape[0], :k_half] = hi
+        out[2 * i + 1, :m.shape[0], :k_half] = tf32_round((m - hi.double()).float())
+    return out
 
 
 def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate: int,
@@ -281,16 +359,15 @@ def run_source(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int
     b, length = waveform.shape
     t = stft_ops.num_frames(length, n_fft, hop_length)
     device = waveform.device
-    bands = mel_bands(sample_rate, n_fft, n_mels, float(f_min),
-                      sample_rate / 2.0 if f_max is None else float(f_max), mel_scale, norm,
-                      device)
+    filterbank = (sample_rate, n_fft, n_mels, float(f_min),
+                  sample_rate / 2.0 if f_max is None else float(f_max), mel_scale, norm, device)
     x = stft_ops.reflect_pad(waveform, n_fft // 2)  # (B, L + n_fft), contiguous
     db = torch.empty((b, t, n_mels), dtype=torch.float32, device=device)
     out = torch.empty((b, n_mels, t), dtype=torch.float32, device=device)
     lib = _build.load(source)
     stream = torch.cuda.current_stream(device).cuda_stream
     dev_index = device.index if device.index is not None else torch.cuda.current_device()
-    _SPECTRA[source](lib, dev_index, x, n_fft, hop_length, t, bands, db, stream)
+    _SPECTRA[source](lib, dev_index, x, n_fft, hop_length, t, filterbank, db, stream)
     bounds = None if spec_mask_bounds is None else spec_mask_bounds.contiguous()
     _build.launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
             int(top_db is not None), 0.0 if top_db is None else float(top_db),
@@ -437,10 +514,12 @@ def log_mel_bf16x3(
     hop: dB, then top_db and normalize, as the JAX package runs them after
     `_kernel_bf16x3` (`pallas_mel.py:1866`). Backend "pallas" reaches it at
     every n_fft % 4 != 0 (1001/250, 1022/511, 2050/512), which runs
-    `csrc/log_mel_dft_gemm.cu`; named, at other n_fft, the source
-    `cuda_route` picks. `spec_mask_bounds` raises, and `dft_passes` 5 and 6
-    raise, as in the JAX package; 3 and 4 are checked and ignored: the TPU's
-    bf16 hi/lo split becomes a TF32 one that meets the f32 budget.
+    `csrc/log_mel_dft_gemm.cu`: the folded real DFT (K = n_fft // 2) as three
+    TF32 `wgmma` products on hi/lo-split operands, the constants fed by TMA;
+    named, at other n_fft, the source `cuda_route` picks. `spec_mask_bounds`
+    raises, and `dft_passes` 5 and 6 raise, as in the JAX package; 3 and 4 are
+    checked and ignored: the TPU's bf16 hi/lo split becomes a TF32 one that
+    meets the f32 budget.
     """
     return _log_mel_fused(
         log_mel_bf16x3, "bf16x3", waveform, sample_rate, n_fft,
@@ -467,9 +546,9 @@ def log_mel_f32(
         spec_mask_bounds=spec_mask_bounds)
 
 
-def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> None:
+def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
     window, twiddle_rn, twiddle_fft = _twiddles_radix8dif(n_fft, x.device)
-    mel_start, mel_offset, mel_weight = bands
+    mel_start, mel_offset, mel_weight = mel_bands(*filterbank)
     _build.launch(lib, lib.log_mel_radix8dif_launch, dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle_rn.data_ptr(),
             twiddle_fft.data_ptr(), mel_start.data_ptr(), mel_offset.data_ptr(),
@@ -477,24 +556,45 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, bands, db, stream) -> 
             stream)
 
 
-def _spectrum_twiddle_table(launch: str, lib, dev_index, x, n_fft, hop, t, bands, db,
-                            stream) -> None:
-    """The spectrum launch of the two sources that take the window and the
-    one W_N^j table (`_twiddles_mixed_radix`); `launch` names the entry point."""
+def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
     window, twiddle = _twiddles_mixed_radix(n_fft, x.device)
-    mel_start, mel_offset, mel_weight = bands
-    _build.launch(lib, getattr(lib, launch), dev_index, x.data_ptr(), x.shape[0],
+    mel_start, mel_offset, mel_weight = mel_bands(*filterbank)
+    _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
             mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
             mel_start.numel(), db.data_ptr(), stream)
 
 
+def dft_fold_splits(n_rows: int, bin_tiles: int, sms: int) -> int:
+    """The blocks that share a 128-frame row tile of `csrc/log_mel_dft_gemm.cu`,
+    each taking a contiguous half of its bin tiles: 2 where that leaves fewer
+    SMs idle in the last wave (one block an SM), else 1. At 1001/250, 128
+    clips of 5 s: 321 row tiles fill 2.43 waves of 132 SMs, as 642 halves 4.86."""
+    tiles = -(-n_rows // DFT_TILE_ROWS)
+
+    def waves(splits: int) -> float:
+        return -(-tiles * splits // sms) / splits
+
+    return 2 if bin_tiles >= 2 and waves(2) < waves(1) else 1
+
+
+def _spectrum_dft_fold(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
+    consts = _dft_fold_constants(n_fft, x.device)
+    table = mel_bin_table(*filterbank)
+    splits = dft_fold_splits(db.shape[0] * t, consts.shape[1] // DFT_BIN_TILE,
+                             torch.cuda.get_device_properties(x.device).multi_processor_count)
+    partial = torch.empty_like(db) if splits == 2 else None
+    _build.launch(lib, lib.log_mel_dft_gemm_launch, dev_index, x.data_ptr(), x.shape[0],
+            x.shape[1], n_fft, hop, t, consts.data_ptr(), consts.shape[2], consts.shape[1],
+            table.data_ptr(), filterbank[2], db.data_ptr(), splits,
+            None if partial is None else partial.data_ptr(), stream)
+
+
 # CUDA source -> its spectrum launch
 _SPECTRA = {
     "log_mel_radix8dif": _spectrum_radix8dif,
-    "log_mel_mixed_radix": functools.partial(_spectrum_twiddle_table,
-                                             "log_mel_mixed_radix_launch"),
-    "log_mel_dft_gemm": functools.partial(_spectrum_twiddle_table, "log_mel_dft_gemm_launch"),
+    "log_mel_mixed_radix": _spectrum_mixed_radix,
+    "log_mel_dft_gemm": _spectrum_dft_fold,
 }
 # the wrapper of each algorithm, and the launch counts of each: the inference
 # form, and the training form (SpecAugment bounds; only the fused algorithms)
@@ -520,7 +620,12 @@ _build.declare("log_mel_radix8dif", {
                                  _I, _I, _P, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
 })
-_TABLE_SPECTRUM = [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P]
-for _source in ("log_mel_mixed_radix", "log_mel_dft_gemm"):
-    _build.declare(_source, {f"{_source}_launch": _TABLE_SPECTRUM,
-                             "log_mel_epilogue_launch": _EPILOGUE})
+_build.declare("log_mel_mixed_radix", {
+    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "log_mel_epilogue_launch": _EPILOGUE,
+})
+_build.declare("log_mel_dft_gemm", {
+    "log_mel_dft_gemm_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P,
+                                _P],
+    "log_mel_epilogue_launch": _EPILOGUE,
+})

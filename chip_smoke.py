@@ -73,7 +73,9 @@ toolkit. Phases:
    engine at 768/256 (row 5), each with the launch counts read around it
    and the card held against the CPU; wav -> logits clips/s and
    classify_wave latency at 512/128;
-18. TPU-kernel row 7 (`bf16x3` / `f32`) on the DFT GEMM log-mel kernel at
+18. TPU-kernel row 7 (`bf16x3` / `f32`) on the DFT GEMM log-mel kernel (a
+   folded real-input DFT on `wgmma`, fed by TMA; its SASS must hold HGMMA and
+   UTMALDG, counted by `cuobjdump -sass`) at
    n_fft % 4 != 0 (1001/250, 505/126, 1022/511, 2050/512): both names against
    their plain version in float64 on seeded noise at 5 and 1 s, dB only and
    with top_db 80 + normalize, and against the float64 golden over the
@@ -86,8 +88,9 @@ toolkit. Phases:
    2048/512; the odd-n_fft framing repair on the card (`ClassifierEngine`
    under backend "auto" at 1001/250: 321 frames, the plain chain, held
    against the CPU); each name timed at 128 x 5 s beside its bound, plain
-   version and yardstick; the new source beside the radix-8 one at 2048/512
-   (`run_source`); and `python -m audio_classification_icbhi_tpu_torch.parity`
+   version and yardstick, with its achieved TF32 rate (MMA work over time,
+   and its share of 495 TFLOP/s); the new source beside the radix-8 one at
+   2048/512 (`run_source`); and `python -m audio_classification_icbhi_tpu_torch.parity`
    at 2048/512, every row within its gate.
 
 Every failed check raises, and the script exits non-zero without printing a
@@ -102,6 +105,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1763,11 +1767,46 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
 B7_SHAPES = ((1001, 250), (505, 126), (1022, 511), (2050, 512))
 B7_MAIN = (1001, 250)
 B7_ALGORITHMS = ("bf16x3", "f32")
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
+
+
+def sass_counts(library: Path, opcodes=("HGMMA", "UTMALDG")) -> dict[str, int]:
+    """How many of each opcode the built library's SASS holds, by the
+    toolkit's `cuobjdump -sass` (beside nvcc); raises if it is missing."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    check(cuobjdump.exists(), f"cuobjdump beside nvcc ({cuobjdump})")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def dft_fold_tflop(batch: int, length: int, n_fft: int, hop: int) -> tuple[float, float]:
+    """TF32 MMA work of one `log_mel_dft_gemm` call in TFLOP, (as run on the
+    padded tiles, as the fold needs): cos and sin products, three each, of
+    frames x bins x K, 2 operations a multiply-add."""
+    k_half, k_pad, bins_pad = mel_kernels.dft_fold_geometry(n_fft)
+    rows, tile = batch * (1 + length // hop), mel_kernels.DFT_TILE_ROWS
+    run = 12 * (-(-rows // tile) * tile) * bins_pad * k_pad
+    need = 12 * rows * (n_fft // 2 + 1) * k_half
+    return run / 1e12, need / 1e12
+
+
+def print_tf32_rate(card: str, alg: str, n_fft: int, hop: int, kernel_ms: float) -> None:
+    """The DFT kernel's achieved TF32 rate at 128 x 5 s: its MMA work over its
+    time, and that as a share of the dense TF32 peak."""
+    run, need = dft_fold_tflop(BATCH, CLIP, n_fft, hop)
+    rate = run / kernel_ms * 1e3
+    print(f"phase 18: [{card}] log_mel_{alg} {n_fft}/{hop}: TF32 MMA work {run:.4f} TFLOP as "
+          f"run on the tiles ({need:.4f} as the fold needs): {rate:.1f} TFLOP/s, "
+          f"{100 * rate * 1e12 / TF32_FLOPS:.1f}% of {TF32_FLOPS / 1e12:g}; folded floor "
+          f"{run * 1e15 / TF32_FLOPS:.4f} ms")
 
 
 def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
-    """Row 7 through its two wrappers: against the plain version in float64
-    on seeded noise (B 3, one example 26 dB louder) at 5 and 1 s, dB only
+    """Row 7 through its two wrappers, after a look at the DFT kernel's SASS
+    (HGMMA and UTMALDG both present, or the phase fails): against the plain
+    version in float64 on seeded noise (B 3, one example 26 dB louder) at 5
+    and 1 s, dB only
     (tol 1e-3) and with top_db 80 + normalize (2e-3); against the float64
     golden over the parity battery at 5 and 1 s through `parity.parity`,
     unrestricted at n_fft >= 1536 and in the 25 dB active region below. Then
@@ -1778,11 +1817,14 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
     backend="pallas")` at 1022/511 and `pallas_algorithm="f32"` at 1001/250
     and 2048/512 (8 clips, against the CPU in float64). Then the framing
     repair on the card (`ClassifierEngine` under "auto" at 1001/250: 321
-    frames, no kernel), the timings, the new source beside the radix-8 one
-    at 2048/512, and the parity entry point at 2048/512. Returns each name's
-    kernel-line numbers."""
+    frames, no kernel), the timings with the achieved TF32 rate, the new
+    source beside the radix-8 one at 2048/512, and the parity entry point at
+    2048/512. Returns each name's kernel-line numbers."""
     rng = np.random.default_rng(18)  # its own stream: the inputs do not depend on earlier phases
     wrappers = mel_kernels.WRAPPERS
+    sass = sass_counts(_build.build_all()["log_mel_dft_gemm"][0])
+    print(f"phase 18: SASS of log_mel_dft_gemm: {sass} (wgmma, TMA tensor loads)")
+    check(all(n > 0 for n in sass.values()), "the DFT kernel's SASS holds HGMMA and UTMALDG")
     errs = {alg: [] for alg in B7_ALGORITHMS}
     epilogue = dict(top_db=80.0, normalize=True)
     for n_fft, hop in B7_SHAPES:
@@ -1923,6 +1965,7 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
               f"(n_fft - 1) / 2), bound {bound_ms:.4f} ms ({bound_by}; bytes "
               f"{floors['bytes']:.4f}, operations {floors['operations']:.4f}, bytes with the "
               f"dB scratch {floors['bytes_with_scratch']:.4f})")
+        print_tf32_rate(card, alg, n_fft, hop, kernel_ms)
         rows[alg] = {"launches": launches[alg], "max_abs_err": max(errs[alg]), "ms": kernel_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms}
@@ -1930,6 +1973,7 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
         kernel_ms = cuda_ms(lambda: wrappers["bf16x3"](x, SR, nf, hp, N_MELS, **kw), iters=5)
         print(f"phase 18: [{card}] log_mel_bf16x3 {nf}/{hp} B={BATCH} x 5 s: kernel "
               f"{kernel_ms:.4f} ms, bound {bound(BATCH, CLIP, dev, nf, hp)[0]:.4f} ms")
+        print_tf32_rate(card, "bf16x3", nf, hp, kernel_ms)
     compare_sources(dev, card, rng, shapes=(("bf16x3", BATCH, CLIP, 2048, 512, False),),
                     sources=("log_mel_radix8dif", "log_mel_dft_gemm"), phase=18)
 
