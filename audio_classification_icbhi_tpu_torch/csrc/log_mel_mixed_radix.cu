@@ -7,10 +7,11 @@
 //   row 5 `_kernel_radix2_fused` (:723, via `_log_mel_radix2_fused` :783),
 //   row 6 `_kernel_radix2` (:633, via `_log_mel_radix2` :1542).
 // It runs every log-mel algorithm (rows 1-2 too) at each n_fft that
-// log_mel_radix8dif.cu does not take: all but 1024, 2048, 4096 and 8192, where
-// that kernel, one warp a frame, is the faster (chip_smoke.py phase 16 times
-// the two). So rows 3-6 run here at their own shapes (512/128, 768/256,
-// 800/200, ...), and on log_mel_radix8dif.cu at n_fft 2048 (row 4's 2048/512).
+// log_mel_radix8dif.cu does not take: all but 512, 1024, 2048, 4096 and 8192,
+// where that kernel, one warp a frame, is the faster (chip_smoke.py phase 16
+// times the two). So rows 3-6 run here at their own shapes (768/256,
+// 800/200, 1536/384, ...), and on log_mel_radix8dif.cu at n_fft 512 (row 3's
+// 512/128) and 2048 (row 4's 2048/512).
 //
 // Function: reflect-padded (B, L + N) f32 waveform -> frames at t * hop ->
 // periodic Hann -> |rfft|^2 -> banded mel projection -> 10*log10(max(., 1e-10))
@@ -44,7 +45,7 @@
 // levels can differ by tens of dB; an odd T leaves each example's last frame
 // alone.
 //
-// What bounds it on this card: at the 512/128 serving shape (128 clips of 5 s,
+// What bounds it on this card: at a 512/128 serving shape (128 clips of 5 s,
 // 128 mels, 626 frames a clip) the function reads 41 MB of padded waveform and
 // writes 41 MB of log-mel: 0.025 ms of HBM time. Its f32 work (one 512-point
 // complex FFT per two frames, power, banded mel sums, ~1.1 GFLOP) is 0.016 ms

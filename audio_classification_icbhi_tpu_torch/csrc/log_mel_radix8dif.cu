@@ -2,16 +2,19 @@
 // port of the TPU kernel `_kernel_radix8dif_fused` / `_log_mel_radix8dif_fused`
 // (audio_classification_icbhi_tpu/ops/pallas_mel.py:1193, :1456; constants
 // `_constants_radix8dif` :307-395) and its epilogue `_fused_epilogue` (:683).
-// It takes n_fft 1024, 2048, 4096 and 8192 at any hop, and there it runs every
-// log-mel algorithm: row 1 `_kernel_radix16dif_fused` (:1270) at config.yaml's
-// 2048/512, and rows 3-6 at those n_fft. At each of them it is faster than
-// log_mel_mixed_radix.cu, which takes every other n_fft (chip_smoke.py phase
-// 16 times the two).
+// It takes n_fft 512, 1024, 2048, 4096 and 8192 at any hop, and at the n_fft
+// `mel_kernels.cuda_route` sends here it runs every log-mel algorithm: row 1
+// `_kernel_radix16dif_fused` (:1270) at config.yaml's 2048/512, row 2 at the
+// analyzer's 1024/256, row 3 at 512/128, row 4 at 2048/512 (chip_smoke.py
+// phase 16 times this source beside log_mel_mixed_radix.cu, which takes the
+// other n_fft).
 //
-// Function: reflect-padded (B, L + N) f32 waveform -> frames at hop ->
+// Function: unpadded (B, L) f32 waveform -> frames at t * hop of its reflect
+// padding by N/2 (numpy's "reflect", period 2(L - 1), index 0 when L = 1) ->
 // periodic Hann -> |rfft|^2 -> banded mel projection -> 10*log10(max(., 1e-10))
-// -> the per-example epilogue of log_mel_epilogue.cuh (top_db, the optional
-// SpecAugment bounds, normalize) -> (B, n_mels, T) f32.
+// into a (B, T, n_mels) dB scratch; then the per-example epilogue of
+// log_mel_epilogue.cuh (top_db, the optional SpecAugment bounds, normalize)
+// -> (B, n_mels, T) f32. Two launches a call, no padded copy.
 //
 // The decomposition (pallas_mel.py:311-338). A windowed frame x of N samples
 // splits into eight contiguous eighth-blocks b_j[n] = x[jE + n], E = N/8, and
@@ -20,48 +23,75 @@
 // u_2, u_3 complex. For real input only r = 0..4 are needed: bins with
 // 8m + r > N/2 are the conjugates of bins N - (8m + r) (classes 7, 6, 5), so
 // they carry the same power and land on those bins. Class 0 keeps m <= E/2
-// and class 4 keeps m < E/2 (its other half repeats it mirrored).
+// and class 4 keeps m < E/2 (its other half repeats it mirrored). u_4 W_N^{4n}
+// is complex (u_4's DFT at half-integer frequencies), so u_0 and u_4 cannot
+// share one complex FFT: five E-point FFTs a frame.
 //
-// Why u_0 and u_4 W_N^{4n} do not share one complex FFT: the two-for-one
-// trick (z = a + i b, unpacked by conjugate symmetry) needs two REAL
-// sequences, and u_4 W_N^{4n} is complex (its DFT is u_4's at half-integer
-// frequencies). Each class therefore gets its own E-point complex FFT: five
-// per frame, u_0's with a zero imaginary part.
+// What bounds it on this card. At config.yaml's serving shape (128 clips of
+// 5 s, 2048/512, 128 mels: 20,096 frames) the function reads 41 MB and writes
+// 10 MB (0.016 ms of HBM time) and does ~1.3 GFLOP of f32 work (0.019 ms at
+// the CUDA-core peak). Neither binds: one warp a frame runs a chain of
+// shuffles, loads and FMAs whose latency only other warps can hide. The
+// previous design kept the five class sequences u_r in a per-warp slice of
+// shared memory (8E words) beside the power buffer (4E words) and staged the
+// twiddles and mel weights in every block (10E words + the bands): at 2048 a
+// block of 8 warps took 118,760 bytes and an SM held one block, 8 warps, and
+// each warp ran ~19 frames in sequence. Row 1 took 0.3987-0.4034 ms (the
+// spectrum kernel 284 us of it, the wrapper's reflect-pad gather 58 us), row 2
+// 0.5376-0.5397 ms at 2,400 x 0.5 s, row 4 0.4022-0.4053 ms (H100 80GB HBM3,
+// 700 W; PERF.md).
 //
-// What bounds it on this card: at the analyzer's shape (n_fft 1024, hop 256,
-// 128 mels, 64 windows of 0.5 s = 2,048 frames) the function reads ~2.3 MB
-// of padded waveform and writes ~1 MB: about 1 us of HBM time, and ~61 MFLOP
-// of f32 work, about 1 us of CUDA-core time. Neither binds: the kernel is
-// bound by latency and by how many frames it keeps in flight. (One 256-thread
-// block running one FFT at a time behind a block barrier per stage would give
-// 128 blocks of 16 serialised frames.)
-//
-// What the design does about that:
-// - One warp per frame, eight warps a block, every frame of the batch in
-//   flight at once (2,048 warps over 132 SMs at the analyzer's shape).
-// - Lane l owns the samples n = l + 32i of every eighth-block (i < E/32), so
-//   neighbouring lanes read neighbouring addresses. It windows them and does
-//   the W_8 butterflies in registers with the TPU kernel's own expressions
-//   (pallas_mel.py:1221-1236), then stores u_0 .. u_4 to the warp's slice of
-//   shared memory: the lane reads back only what it wrote, so no barrier.
-// - Each class is twiddled by W_N^{rn} from a table in shared memory (laid
-//   out [r-1][n], conflict-free) and goes through an E-point radix-2 DIF FFT
-//   held in registers: the stages whose butterflies stay inside a lane first,
-//   then five stages across lanes by __shfl_xor_sync. No shared memory and
-//   no barrier inside the FFT; the stage twiddles W_{2h}^j sit in one table
-//   at [h - 1 + j], so a warp reads consecutive words.
+// What the design does about it (each choice timed on the card, H100 80GB
+// HBM3 at 700 W, spectrum kernel alone at 128 x 5 s):
+// - One warp a frame, a persistent grid sized from the occupancy. Lane l owns
+//   n = l + 32i of every eighth-block (i < P = E/32), so neighbouring lanes
+//   read neighbouring addresses.
+// - No u buffer at n_fft <= 2048: a lane forms its rows u_r[n] (the W_8
+//   butterflies with the TPU kernel's own expressions, pallas_mel.py:1221-
+//   1236) from its windowed samples once, keeps all 8P of them in registers
+//   and runs the five classes unrolled from there. Registers set the
+//   occupancy: 128 a thread at 512, 2048 and 4096, 64 at 1024, 255 at 8192
+//   (launch bounds `min_blocks`): 16 / 32 / 16 warps an SM at 512 / 1024 / 2048 (8 before at
+//   2048). Tighter caps that gave 24 warps at 2048 spilled, or reloaded the
+//   samples for every class or two, and ran 13-160 % slower.
+// - At 4096 and 8192 (8P = 128 and 256 values) the rows go to the warp's
+//   slice of shared memory, each lane reading back only what it wrote, and
+//   the five classes run as one loop: one FFT body in the code, where five
+//   unrolled ones ran 18 % slower at 4096. 9 and 4 warps an SM (7 and 3
+//   before).
+// - Shared memory holds nothing else: the window, the class and stage
+//   twiddles and the mel bands are read through the read-only cache
+//   (__ldg), so a block needs no barrier. Staging the twiddles in shared
+//   memory at 8192 cost a warp an SM and ran 8 % slower.
+//   `log_mel_radix8dif_occupancy` reports each instance's launch shape.
+// - Each class is twiddled by W_N^{rn} and goes through an E-point radix-2
+//   DIF FFT in registers: the stages whose butterflies stay inside a lane
+//   first, then five stages across lanes by __shfl_xor_sync, each an FMA
+//   with the lane's sign and a twiddle of 1 in the lower lanes (no branch;
+//   15 % faster than the branching form). The stage twiddles W_{2h}^j sit in
+//   one table at [h - 1 + j].
 // - The FFT leaves bin m in bit-reversed position; each lane writes the power
 //   of its bins at their natural index k = 8m + r (or N - k) into the warp's
-//   power buffer, skewed by one word every 32 to spread the banks. Then, after
-//   one __syncwarp, lane l sums the mel bands l, l + 32, ... over their nonzero
-//   weights only (`mel_bands` in ops/mel_kernels.py) and writes dB to the
-//   (B, T, n_mels) scratch, neighbouring lanes to neighbouring mels.
-// - The TPU kernel's bf16 hi/lo DFT GEMMs exist because Mosaic has no f32
-//   matmul. Here everything stays f32: a bf16 mel projection alone would
-//   break the 1e-3 dB budget.
-// - The epilogue is log_mel_epilogue.cuh's kernel, shared with
-//   log_mel_mixed_radix.cu, so the training form (nullable (B, 4) bounds)
-//   comes with it.
+//   power buffer, one word of skew every 32 bins. After one __syncwarp lane
+//   l sums bands l, l + 32, ... over their nonzero weights (`mel_bands` in
+//   ops/mel_kernels.py) in four interleaved accumulators, added as (a0 + a1)
+//   + (a2 + a3): a chain a quarter as long, in a fixed order, so two calls
+//   give equal bits.
+// - Reflect padding inside the kernel: a frame within N/2 of either end maps
+//   each sample index through the reflection; every other frame reads the
+//   waveform directly. The wrapper launches two kernels, no gather.
+// - Everything stays f32: the TPU kernel's bf16 hi/lo DFT GEMMs exist because
+//   Mosaic has no f32 matmul, and a bf16 mel projection alone would break the
+//   1e-3 dB budget.
+// - The epilogue is log_mel_epilogue.cuh's kernel, shared with the other
+//   log-mel sources, so the training form (nullable (B, 4) bounds) comes
+//   with it.
+//
+// Measured (the same card): the spectrum kernel alone 0.156 ms at 2048/512
+// (0.284 before, with the gather 0.342), row 1 0.18 ms a call. What bounds
+// it now is instructions: by a count of the code, a frame at 2048 is ~4,000
+// warp instructions, ~40 % of them the cross-lane FFT stages, issued at
+// about half the SM's rate.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,35 +101,108 @@
 
 namespace {
 
-constexpr int kMaxWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+__host__ __device__ constexpr int ilog2(int p) { return p <= 1 ? 0 : 1 + ilog2(p / 2); }
+
+// Where a lane keeps its rows of the class sequences. Up to P = 8 (8P
+// values) in registers, the five classes unrolled. At P = 16 and 32 in the
+// warp's slice of shared memory (8E words, each lane reading back only what
+// it wrote), the classes one loop over a class index: one FFT body, where
+// five unrolled ones ran slower.
+__host__ __device__ constexpr bool rows_in_smem(int p) { return p >= 16; }
+
+// Blocks of 8 warps an SM must hold within the register file (the launch
+// bounds): 64 registers a thread at P = 4, 128 at P = 2, 8 and 16, 255 at
+// P = 32. Chosen by timing each instance's spectrum under other caps: more
+// warps with fewer registers spilled and ran slower.
+constexpr int kMaxWarpsPerBlock = 8;
+__host__ __device__ constexpr int min_blocks(int p) { return p == 4 ? 4 : p == 32 ? 1 : 2; }
+
+// Words of a warp's power buffer: bins 0 .. 4E, one word of skew every 32.
+__host__ __device__ constexpr int pw_words(int e) { return 4 * e + ((4 * e) >> 5) + 1; }
+
+// Words of a warp's slice: its power buffer, then its rows where they live
+// in shared memory.
+__host__ __device__ constexpr int warp_words(int e) {
+  return pw_words(e) + (rows_in_smem(e / 32) ? 8 * e : 0);
+}
 
 // Index of power bin k in a warp's power buffer: one word of skew every 32
 // bins, so that the 32 lanes' bit-reversed bins (k = 32q + c at P = 4) fall
 // on distinct banks.
 __device__ __forceinline__ int pw_index(int k) { return k + (k >> 5); }
 
-// Shared-memory carve-up, in 4-byte words: the block's constants, then one
-// slice per warp (the five sequences u_r, 8E words, then its power buffer).
-struct SmemLayout {
-  int e, n_mels, nnz;
-  __host__ __device__ int tw_rn() const { return 0; }                  // 4E float2
-  __host__ __device__ int tw_fft() const { return 8 * e; }             // E float2
-  __host__ __device__ int weights() const { return 10 * e; }           // nnz floats
-  __host__ __device__ int starts() const { return 10 * e + nnz; }      // n_mels ints
-  __host__ __device__ int offsets() const { return starts() + n_mels; }  // n_mels + 1
-  __host__ __device__ int warp0() const { return offsets() + n_mels + 1; }
-  __host__ __device__ int pw_words() const { return 4 * e + 1 + ((4 * e + 1) >> 5) + 1; }
-  __host__ __device__ int warp_words() const { return 8 * e + pw_words(); }
-  __host__ __device__ size_t bytes(int warps) const {
-    return 4 * ((size_t)warp0() + (size_t)warps * warp_words());
-  }
-};
+// numpy's reflect of waveform index o, which may lie before 0 or past
+// length - 1 (a pad longer than the signal repeats with period 2(length - 1)),
+// into [0, length): `stft_ops.reflect_pad` of the port, index by index.
+__device__ __forceinline__ int reflect_index(int o, int length) {
+  if (length == 1) return 0;
+  const int period = 2 * (length - 1);
+  int r = o % period;
+  if (r < 0) r += period;
+  return r >= length ? period - r : r;
+}
 
 __device__ __forceinline__ void cmul(float& re, float& im, float2 w) {
   const float r = re * w.x - im * w.y;
   im = re * w.y + im * w.x;
   re = r;
+}
+
+// Rows of the class sequences a lane holds, for n = lane + 32i: 0 u_0, 1 u_4,
+// 2-3 u_1 (re, im), 4-5 u_2, 6-7 u_3; u[row][i] in registers, or us[row * E
+// + n] in the warp's shared slice (kSmem).
+//
+// Window and W_8 butterflies (pallas_mel.py:1221-1236) of the frame whose
+// first padded sample is waveform index `base`. kEdge: the frame reaches
+// into the padding, so each index is reflected.
+template <int P, bool kEdge, bool kSmem>
+__device__ __forceinline__ void form_rows_at(const float* __restrict__ wave, int base, int length,
+                                             int lane, const float* __restrict__ window,
+                                             float (&u)[8][P], float* us) {
+  constexpr int E = 32 * P;
+  constexpr float kH = 0.70710678118654752f;  // sqrt(1/2)
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int n = lane + 32 * i;
+    float bj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = base + j * E + n;
+      bj[j] = __ldg(wave + (kEdge ? reflect_index(o, length) : o)) * __ldg(window + j * E + n);
+    }
+    const float ev = (bj[0] + bj[4]) + (bj[2] + bj[6]);
+    const float od = (bj[1] + bj[5]) + (bj[3] + bj[7]);
+    const float d04 = bj[0] - bj[4], d26 = bj[2] - bj[6];
+    const float s17 = bj[1] + bj[7], s35 = bj[3] + bj[5];
+    const float hs = kH * ((bj[5] + bj[7]) - (bj[1] + bj[3]));
+    const float rows[8] = {ev + od,
+                           ev - od,
+                           d04 + kH * (s17 - s35),
+                           hs - d26,
+                           (bj[0] + bj[4]) - (bj[2] + bj[6]),
+                           (bj[3] + bj[7]) - (bj[1] + bj[5]),
+                           d04 + kH * (s35 - s17),
+                           hs + d26};
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if constexpr (kSmem)
+        us[r * E + n] = rows[r];
+      else
+        u[r][i] = rows[r];
+    }
+  }
+}
+
+template <int P, bool kSmem>
+__device__ __forceinline__ void form_rows(bool edge, const float* __restrict__ wave, int base,
+                                          int length, int lane, const float* __restrict__ window,
+                                          float (&u)[8][P], float* us) {
+  if (edge)
+    form_rows_at<P, true, kSmem>(wave, base, length, lane, window, u, us);
+  else
+    form_rows_at<P, false, kSmem>(wave, base, length, lane, window, u, us);
 }
 
 // In-place E-point radix-2 DIF FFT, E = 32P, of the warp's sequence whose
@@ -119,161 +222,234 @@ __device__ __forceinline__ void fft_dif(float (&re)[P], float (&im)[P], int lane
       im[i] = ai + bi;
       re[i + h] = ar - br;
       im[i + h] = ai - bi;
-      cmul(re[i + h], im[i + h], tw[32 * h - 1 + lane + 32 * (i & (h - 1))]);
+      cmul(re[i + h], im[i + h],
+           __ldg(tw + 32 * h - 1 + lane + 32 * (i & (h - 1))));
     }
   }
-  // Stages with half-length 16 .. 1: the partner is lane ^ half.
+  // Stages with half-length 16 .. 1: the partner is lane ^ half. The lower
+  // lane keeps self + partner, the upper partner - self times W_{2 half}^j:
+  // one FMA with the sign s, and a twiddle of 1 in the lower lanes, so that
+  // no lane branches; the last stage's twiddles are all 1.
 #pragma unroll
   for (int half = 16; half >= 1; half >>= 1) {
     const bool upper = lane & half;
-    const float2 w = tw[half - 1 + (lane & (half - 1))];
+    const float s = upper ? -1.0f : 1.0f;
+    float2 w = make_float2(1.0f, 0.0f);
+    if (half > 1 && upper) w = __ldg(tw + half - 1 + (lane & (half - 1)));
 #pragma unroll
     for (int i = 0; i < P; ++i) {
       const float pr = __shfl_xor_sync(kFullMask, re[i], half);
       const float pi = __shfl_xor_sync(kFullMask, im[i], half);
-      if (!upper) {
-        re[i] += pr;
-        im[i] += pi;
-      } else {
-        re[i] = pr - re[i];
-        im[i] = pi - im[i];
-        cmul(re[i], im[i], w);
-      }
+      re[i] = fmaf(s, re[i], pr);
+      im[i] = fmaf(s, im[i], pi);
+      if (half > 1) cmul(re[i], im[i], w);
     }
   }
 }
 
+// Class r of the frame from its rows (re, im) in place: twiddled by
+// W_N^{rn}, transformed, and its power written at the natural bins. r is a
+// constant where the classes are unrolled.
 template <int P>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32) log_mel_radix8dif_kernel(
-    const float* __restrict__ x_pad,        // (B, padded_len)
-    int padded_len, int hop, int n_frames, long long total_frames,
+__device__ __forceinline__ void class_power(int r, float (&re)[P], float (&im)[P], int lane,
+                                            const float2* __restrict__ twiddle_rn,
+                                            const float2* __restrict__ twiddle_fft, float* pw) {
+  constexpr int E = 32 * P, N = 8 * E, kLog2E = 5 + ilog2(P);
+  if (r) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      cmul(re[i], im[i], __ldg(twiddle_rn + (r - 1) * E + lane + 32 * i));
+  }
+  fft_dif<P>(re, im, lane, twiddle_fft);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int m = (int)(__brev((unsigned)(lane + 32 * i)) >> (32 - kLog2E));
+    if ((r == 0 && m > E / 2) || (r == 4 && m >= E / 2)) continue;
+    int k = 8 * m + r;
+    if (k > N / 2) k = N - k;
+    pw[pw_index(k)] = re[i] * re[i] + im[i] * im[i];
+  }
+}
+
+// Class R from its rows in registers (ui unread for the real classes 0, 4).
+template <int P, int R>
+__device__ __forceinline__ void class_from_registers(const float (&ur)[P], const float (&ui)[P],
+                                                     int lane, const float2* __restrict__ twiddle_rn,
+                                                     const float2* __restrict__ twiddle_fft,
+                                                     float* pw) {
+  float re[P], im[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    re[i] = ur[i];
+    im[i] = (R == 0 || R == 4) ? 0.0f : ui[i];
+  }
+  class_power<P>(R, re, im, lane, twiddle_rn, twiddle_fft, pw);
+}
+
+// Class r (a runtime index) from its rows in the warp's shared slice.
+template <int P>
+__device__ __forceinline__ void class_from_smem(int r, const float* us, int lane,
+                                                const float2* __restrict__ twiddle_rn,
+                                                const float2* __restrict__ twiddle_fft,
+                                                float* pw) {
+  constexpr int E = 32 * P;
+  const int row = r == 0 ? 0 : r == 4 ? 1 : 2 * r;
+  const bool real_class = r == 0 || r == 4;
+  float re[P], im[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    re[i] = us[row * E + lane + 32 * i];
+    im[i] = real_class ? 0.0f : us[(row + 1) * E + lane + 32 * i];
+  }
+  class_power<P>(r, re, im, lane, twiddle_rn, twiddle_fft, pw);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32, min_blocks(P)) log_mel_radix8dif_kernel(
+    const float* __restrict__ x,            // (B, length), unpadded
+    int length, int hop, int n_frames, long long total_frames,
     const float* __restrict__ window,       // (N)
     const float2* __restrict__ twiddle_rn,  // (4, E): W_N^{rn}, r = 1..4
     const float2* __restrict__ twiddle_fft, // (E - 1): W_{2h}^j at [h - 1 + j]
     const int* __restrict__ mel_start,      // (n_mels): first bin of each band
     const int* __restrict__ mel_offset,     // (n_mels + 1): band m is weights[off[m], off[m+1])
     const float* __restrict__ mel_weight,   // (nnz)
-    int n_mels, int nnz,
+    int n_mels,
     float* __restrict__ db) {               // (B, n_frames, n_mels)
-  constexpr int E = 32 * P;
-  constexpr int N = 8 * E;
-  constexpr float kH = 0.70710678118654752f;  // sqrt(1/2)
+  constexpr int E = 32 * P, N = 8 * E;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
-  const SmemLayout lay{E, n_mels, nnz};
-  float2* tw_rn = reinterpret_cast<float2*>(smem + lay.tw_rn());
-  float2* tw_fft = reinterpret_cast<float2*>(smem + lay.tw_fft());
-  float* w = smem + lay.weights();
-  int* band_start = reinterpret_cast<int*>(smem + lay.starts());
-  int* band_off = reinterpret_cast<int*>(smem + lay.offsets());
-
-  for (int i = threadIdx.x; i < 4 * E; i += blockDim.x) tw_rn[i] = twiddle_rn[i];
-  for (int i = threadIdx.x; i < E - 1; i += blockDim.x) tw_fft[i] = twiddle_fft[i];
-  for (int i = threadIdx.x; i < nnz; i += blockDim.x) w[i] = mel_weight[i];
-  for (int i = threadIdx.x; i < n_mels; i += blockDim.x) band_start[i] = mel_start[i];
-  for (int i = threadIdx.x; i <= n_mels; i += blockDim.x) band_off[i] = mel_offset[i];
-  __syncthreads();
-
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  float* u = smem + lay.warp0() + warp * lay.warp_words();  // u[s * E + n], 8 rows
-  float* pw = u + 8 * E;                                    // power by bin, skewed
-  constexpr int kLog2E = (P == 4 ? 7 : P == 8 ? 8 : P == 16 ? 9 : 10);
+  float* pw = smem + warp * warp_words(E);  // power by bin, skewed
+  float* us = pw + pw_words(E);             // the rows, where they live here
 
   for (long long f = (long long)blockIdx.x * warps + warp; f < total_frames;
        f += (long long)gridDim.x * warps) {
     const long long b = f / n_frames;
     const int t = (int)(f - b * n_frames);
-    const float* src = x_pad + b * padded_len + (long long)t * hop;
+    const float* wave = x + b * length;
+    const int base = t * hop - N / 2;  // waveform index of the frame's first padded sample
+    const bool edge = base < 0 || base + N > length;
 
-    // Window and W_8 butterflies (pallas_mel.py:1221-1236) in registers;
-    // rows of u: u0, u4, u1 re/im, u2 re/im, u3 re/im.
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const int n = lane + 32 * i;
-      float bj[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bj[j] = src[j * E + n] * __ldg(window + j * E + n);
-      const float ev = (bj[0] + bj[4]) + (bj[2] + bj[6]);
-      const float od = (bj[1] + bj[5]) + (bj[3] + bj[7]);
-      const float d04 = bj[0] - bj[4], d26 = bj[2] - bj[6];
-      const float s17 = bj[1] + bj[7], s35 = bj[3] + bj[5];
-      const float hs = kH * ((bj[5] + bj[7]) - (bj[1] + bj[3]));
-      u[0 * E + n] = ev + od;
-      u[1 * E + n] = ev - od;
-      u[2 * E + n] = d04 + kH * (s17 - s35);
-      u[3 * E + n] = hs - d26;
-      u[4 * E + n] = (bj[0] + bj[4]) - (bj[2] + bj[6]);
-      u[5 * E + n] = (bj[3] + bj[7]) - (bj[1] + bj[5]);
-      u[6 * E + n] = d04 + kH * (s35 - s17);
-      u[7 * E + n] = hs + d26;
-    }
-
-    // One E-point FFT per class r = 0, 4, 1, 2, 3; power at natural bins.
+    float u[8][P];
+    form_rows<P, rows_in_smem(P)>(edge, wave, base, length, lane, window, u, us);
+    if constexpr (rows_in_smem(P)) {
 #pragma unroll 1
-    for (int c = 0; c < 5; ++c) {
-      const int r = c == 0 ? 0 : (c == 1 ? 4 : c - 1);
-      const float* ur = u + (c == 0 ? 0 : c == 1 ? E : 2 * c * E - 2 * E);
-      float re[P], im[P];
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int n = lane + 32 * i;
-        re[i] = ur[n];
-        im[i] = c >= 2 ? ur[E + n] : 0.0f;
-        if (r) cmul(re[i], im[i], tw_rn[(r - 1) * E + n]);
-      }
-      fft_dif<P>(re, im, lane, tw_fft);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int m = (int)(__brev((unsigned)(lane + 32 * i)) >> (32 - kLog2E));
-        if ((r == 0 && m > E / 2) || (r == 4 && m >= E / 2)) continue;
-        int k = 8 * m + r;
-        if (k > N / 2) k = N - k;
-        pw[pw_index(k)] = re[i] * re[i] + im[i] * im[i];
-      }
+      for (int c = 0; c < 5; ++c)
+        class_from_smem<P>(c == 0 ? 0 : c == 1 ? 4 : c - 1, us, lane, twiddle_rn, twiddle_fft, pw);
+    } else {
+      class_from_registers<P, 0>(u[0], u[0], lane, twiddle_rn, twiddle_fft, pw);
+      class_from_registers<P, 4>(u[1], u[1], lane, twiddle_rn, twiddle_fft, pw);
+      class_from_registers<P, 1>(u[2], u[3], lane, twiddle_rn, twiddle_fft, pw);
+      class_from_registers<P, 2>(u[4], u[5], lane, twiddle_rn, twiddle_fft, pw);
+      class_from_registers<P, 3>(u[6], u[7], lane, twiddle_rn, twiddle_fft, pw);
     }
     __syncwarp();
 
+    // Mel bands l, l + 32, ...: four interleaved accumulators over the
+    // band's weights, added in a fixed order.
     float* out = db + (size_t)f * n_mels;
     for (int m = lane; m < n_mels; m += 32) {
-      const int lo = band_off[m], hi = band_off[m + 1], k0 = band_start[m] - lo;
-      float acc = 0.0f;
-      for (int j = lo; j < hi; ++j) acc += w[j] * pw[pw_index(k0 + j)];
-      out[m] = 10.0f * log10f(fmaxf(acc, 1e-10f));
+      const int lo = __ldg(mel_offset + m), hi = __ldg(mel_offset + m + 1);
+      const int k0 = __ldg(mel_start + m) - lo;
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+      int j = lo;
+      for (; j + 4 <= hi; j += 4) {
+        a0 += __ldg(mel_weight + j) * pw[pw_index(k0 + j)];
+        a1 += __ldg(mel_weight + j + 1) * pw[pw_index(k0 + j + 1)];
+        a2 += __ldg(mel_weight + j + 2) * pw[pw_index(k0 + j + 2)];
+        a3 += __ldg(mel_weight + j + 3) * pw[pw_index(k0 + j + 3)];
+      }
+      if (j < hi) a0 += __ldg(mel_weight + j) * pw[pw_index(k0 + j)];
+      if (j + 1 < hi) a1 += __ldg(mel_weight + j + 1) * pw[pw_index(k0 + j + 1)];
+      if (j + 2 < hi) a2 += __ldg(mel_weight + j + 2) * pw[pw_index(k0 + j + 2)];
+      out[m] = 10.0f * log10f(fmaxf((a0 + a1) + (a2 + a3), 1e-10f));
     }
     __syncwarp();  // the power buffer is free for the next frame
   }
 }
 
+// The launch shape of instance P on `device`: the block of <= 8 warps that
+// puts the most warps on an SM, its blocks an SM, registers a thread and
+// dynamic shared memory a block. Computed once per device and cached.
+struct Occupancy {
+  int warps, blocks_per_sm, regs, sms;
+  size_t smem;
+};
+
 template <int P>
-int launch_spectrum(const float* x_pad, int batch, int padded_len, int hop, int n_frames,
-                    const float* window, const float2* twiddle_rn, const float2* twiddle_fft,
-                    const int* mel_start, const int* mel_offset, const float* mel_weight,
-                    int n_mels, int nnz, float* db, cudaStream_t stream, int device) {
-  const SmemLayout lay{32 * P, n_mels, nnz};
+cudaError_t occupancy(int device, Occupancy* occ) {
+  constexpr int kDevices = 64;
+  static Occupancy cached[kDevices];
+  static bool known[kDevices];
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+  if (known[device]) {
+    *occ = cached[device];
+    return cudaSuccess;
+  }
+  auto kernel = log_mel_radix8dif_kernel<P>;
+  const size_t per_warp = 4 * (size_t)warp_words(32 * P);
   int smem_optin = 0, sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&smem_optin,
                                            cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  int warps = kMaxWarpsPerBlock;
-  while (warps > 1 && lay.bytes(warps) > (size_t)smem_optin) --warps;
-  const size_t smem = lay.bytes(warps);
-  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  auto kernel = log_mel_radix8dif_kernel<P>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  const size_t most = per_warp * kMaxWarpsPerBlock < (size_t)smem_optin
+                          ? per_warp * kMaxWarpsPerBlock : (size_t)smem_optin;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  Occupancy best{0, 0, attr.numRegs, sms, 0};
+  for (int w = kMaxWarpsPerBlock; w >= 1; --w) {
+    const size_t smem = w * per_warp;
+    if (smem > most) continue;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, w * 32, smem);
+    if (err != cudaSuccess) return err;
+    if (blocks * w > best.blocks_per_sm * best.warps) {
+      best.warps = w;
+      best.blocks_per_sm = blocks;
+      best.smem = smem;
+    }
+  }
+  if (best.warps == 0) return cudaErrorInvalidConfiguration;
+  cached[device] = best;
+  known[device] = true;
+  *occ = best;
+  return cudaSuccess;
+}
+
+template <int P>
+int launch_spectrum(const float* x, int batch, int length, int hop, int n_frames,
+                    const float* window, const float2* twiddle_rn, const float2* twiddle_fft,
+                    const int* mel_start, const int* mel_offset, const float* mel_weight,
+                    int n_mels, float* db, cudaStream_t stream, int device) {
+  Occupancy occ;
+  cudaError_t err = occupancy<P>(device, &occ);
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)batch * n_frames;
-  const long long wanted = (total + warps - 1) / warps;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long wanted = (total + occ.warps - 1) / occ.warps;
+  const long long resident = (long long)occ.blocks_per_sm * occ.sms;
   const unsigned grid = (unsigned)(wanted < resident ? wanted : resident);
-  kernel<<<grid, warps * 32, smem, stream>>>(x_pad, padded_len, hop, n_frames, total, window,
-                                             twiddle_rn, twiddle_fft, mel_start, mel_offset,
-                                             mel_weight, n_mels, nnz, db);
+  log_mel_radix8dif_kernel<P><<<grid, occ.warps * 32, occ.smem, stream>>>(
+      x, length, hop, n_frames, total, window, twiddle_rn, twiddle_fft, mel_start, mel_offset,
+      mel_weight, n_mels, db);
   return (int)cudaGetLastError();
+}
+
+template <int P>
+int occupancy_entry(int device, int* out) {
+  Occupancy occ;
+  const cudaError_t err = occupancy<P>(device, &occ);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = occ.warps;
+  out[1] = occ.blocks_per_sm;
+  out[2] = occ.regs;
+  out[3] = (int)occ.smem;
+  return 0;
 }
 
 }  // namespace
@@ -282,20 +458,20 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Spectrum pass: (B, padded_len) -> dB scratch (B, n_frames, n_mels).
-// n_fft = 8E with E = 128, 256, 512 or 1024.
-int log_mel_radix8dif_launch(int device, const void* x_pad, int batch, int padded_len,
-                             int n_fft, int hop, int n_frames, const void* window,
-                             const void* twiddle_rn, const void* twiddle_fft,
-                             const void* mel_start, const void* mel_offset,
-                             const void* mel_weight, int n_mels, int nnz, void* db,
-                             void* stream) {
-  if (batch < 1 || n_frames < 1 || n_mels < 1 || hop < 1 ||
-      (size_t)(n_frames - 1) * hop + n_fft > (size_t)padded_len)
+// Spectrum pass: unpadded (B, length) -> dB scratch (B, n_frames, n_mels),
+// frame t at padded offset t * hop of the reflect padding by n_fft / 2.
+// n_fft = 8E with E = 64, 128, 256, 512 or 1024.
+int log_mel_radix8dif_launch(int device, const void* x, int batch, int length, int n_fft,
+                             int hop, int n_frames, const void* window, const void* twiddle_rn,
+                             const void* twiddle_fft, const void* mel_start,
+                             const void* mel_offset, const void* mel_weight, int n_mels,
+                             void* db, void* stream) {
+  if (batch < 1 || length < 1 || n_frames < 1 || n_mels < 1 || hop < 1 ||
+      (long long)(n_frames - 1) * hop > (long long)length)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const auto* x = (const float*)x_pad;
+  const auto* xs = (const float*)x;
   const auto* win = (const float*)window;
   const auto* trn = (const float2*)twiddle_rn;
   const auto* tfft = (const float2*)twiddle_fft;
@@ -305,14 +481,31 @@ int log_mel_radix8dif_launch(int device, const void* x_pad, int batch, int padde
   auto* out = (float*)db;
   auto s = (cudaStream_t)stream;
   switch (n_fft) {
-    case 1024: return launch_spectrum<4>(x, batch, padded_len, hop, n_frames, win, trn, tfft,
-                                         ms, mo, mw, n_mels, nnz, out, s, device);
-    case 2048: return launch_spectrum<8>(x, batch, padded_len, hop, n_frames, win, trn, tfft,
-                                         ms, mo, mw, n_mels, nnz, out, s, device);
-    case 4096: return launch_spectrum<16>(x, batch, padded_len, hop, n_frames, win, trn, tfft,
-                                          ms, mo, mw, n_mels, nnz, out, s, device);
-    case 8192: return launch_spectrum<32>(x, batch, padded_len, hop, n_frames, win, trn, tfft,
-                                          ms, mo, mw, n_mels, nnz, out, s, device);
+    case 512: return launch_spectrum<2>(xs, batch, length, hop, n_frames, win, trn, tfft, ms,
+                                        mo, mw, n_mels, out, s, device);
+    case 1024: return launch_spectrum<4>(xs, batch, length, hop, n_frames, win, trn, tfft, ms,
+                                         mo, mw, n_mels, out, s, device);
+    case 2048: return launch_spectrum<8>(xs, batch, length, hop, n_frames, win, trn, tfft, ms,
+                                         mo, mw, n_mels, out, s, device);
+    case 4096: return launch_spectrum<16>(xs, batch, length, hop, n_frames, win, trn, tfft, ms,
+                                          mo, mw, n_mels, out, s, device);
+    case 8192: return launch_spectrum<32>(xs, batch, length, hop, n_frames, win, trn, tfft, ms,
+                                          mo, mw, n_mels, out, s, device);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The launch shape of the n_fft instance on `device`, into out[4]: warps a
+// block, blocks an SM, registers a thread, dynamic shared bytes a block.
+int log_mel_radix8dif_occupancy(int device, int n_fft, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (n_fft) {
+    case 512: return occupancy_entry<2>(device, out);
+    case 1024: return occupancy_entry<4>(device, out);
+    case 2048: return occupancy_entry<8>(device, out);
+    case 4096: return occupancy_entry<16>(device, out);
+    case 8192: return occupancy_entry<32>(device, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -238,7 +238,7 @@ class MelFrontend:
     port (`PORTED_ALGORITHMS`); the source each shape runs is
     `mel_kernels.cuda_route`'s, by n_fft: the DFT GEMM kernel at n_fft % 4
     != 0 (backend "pallas" picks "bf16x3" there), the radix-8 kernel at
-    1024, 2048, 4096 and 8192, the mixed-radix kernel at every other n_fft
+    512, 1024, 2048, 4096 and 8192, the mixed-radix kernel at every other n_fft
     up to 16,384. Past that limit a kernel route raises
     NotImplementedError naming the algorithm's ROADMAP.md row. Backends
     "xla" and "xla_radix2", the JAX package's explicit non-Pallas paths, run

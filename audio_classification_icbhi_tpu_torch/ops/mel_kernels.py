@@ -29,7 +29,7 @@ n_fft alone (`cuda_route`): `csrc/log_mel_dft_gemm.cu`, a folded real-input
 DFT on `wgmma` (TF32, three hi/lo products) fed by a TMA ring, at n_fft % 4
 != 0 (where the JAX policy picks bf16x3), with its constants built once per
 (n_fft, device) (`_dft_fold_constants`, 1.08 GB at n_fft 16,383);
-`csrc/log_mel_radix8dif.cu` at n_fft 1024, 2048, 4096 and 8192, where it is
+`csrc/log_mel_radix8dif.cu` at n_fft 512, 1024, 2048, 4096 and 8192, where it is
 the fastest (`chip_smoke.py` phases 16 and 18 time the sources side by side);
 `csrc/log_mel_mixed_radix.cu` at every other n_fft. All take any hop, up to
 one limit, `MIXED_RADIX_MAX_N_FFT`; beyond it the CUDA route raises
@@ -52,9 +52,11 @@ On a CPU tensor every wrapper runs `log_mel_fused_reference`.
 
 Each CUDA source's header note says what bounds its kernel on the card and
 what its design does about it; the epilogue kernel is
-`csrc/log_mel_epilogue.cuh`, which all include. A wrapper reflect-pads (as
-the TPU wrappers do), allocates the dB scratch and the output, and launches
-the spectrum kernel and the epilogue on the current stream.
+`csrc/log_mel_epilogue.cuh`, which all include. A wrapper allocates the dB
+scratch and the output and launches the spectrum kernel and the epilogue on
+the current stream: two launches on the radix-8 source, which reflects each
+edge frame's samples inside the kernel; the other sources read a
+reflect-padded copy that the wrapper gathers first (as the TPU wrappers do).
 """
 
 from __future__ import annotations
@@ -125,8 +127,10 @@ def _check_eligible(algorithm: str, n_fft: int, hop_length: int) -> None:
         raise ValueError(f"{algorithm} requires n_fft % {128 * parts} == 0")
 
 
-# the n_fft `csrc/log_mel_radix8dif.cu` takes (one template instance each)
-RADIX8_N_FFT = (1024, 2048, 4096, 8192)
+# the n_fft `csrc/log_mel_radix8dif.cu` takes (one template instance each),
+# all of which `cuda_route` sends to it: the faster source at each
+# (`chip_smoke.py` phase 16 times both)
+RADIX8_N_FFT = (512, 1024, 2048, 4096, 8192)
 
 
 def cuda_route(algorithm: str, n_fft: int) -> str:
@@ -358,22 +362,50 @@ def run_source(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int
     each source at the same shape."""
     b, length = waveform.shape
     t = stft_ops.num_frames(length, n_fft, hop_length)
-    device = waveform.device
-    filterbank = (sample_rate, n_fft, n_mels, float(f_min),
-                  sample_rate / 2.0 if f_max is None else float(f_max), mel_scale, norm, device)
-    x = stft_ops.reflect_pad(waveform, n_fft // 2)  # (B, L + n_fft), contiguous
-    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=device)
-    out = torch.empty((b, n_mels, t), dtype=torch.float32, device=device)
-    lib = _build.load(source)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    dev_index = device.index if device.index is not None else torch.cuda.current_device()
-    _SPECTRA[source](lib, dev_index, x, n_fft, hop_length, t, filterbank, db, stream)
+    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=waveform.device)
+    out = torch.empty((b, n_mels, t), dtype=torch.float32, device=waveform.device)
+    lib, dev_index, stream = spectrum_only(source, waveform, sample_rate, n_fft, hop_length,
+                                           n_mels, db, f_min=f_min, f_max=f_max,
+                                           mel_scale=mel_scale, norm=norm)
     bounds = None if spec_mask_bounds is None else spec_mask_bounds.contiguous()
     _build.launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
             int(top_db is not None), 0.0 if top_db is None else float(top_db),
             int(normalize), float(eps), None if bounds is None else bounds.data_ptr(),
             out.data_ptr(), stream)
     return out
+
+
+def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int,
+                  hop_length: int, n_mels: int, db: torch.Tensor, *, f_min: float = 0.0,
+                  f_max: float | None = None, mel_scale: str = "htk", norm: str | None = None):
+    """The first half of `run_source`: source `source`'s spectrum pass of a
+    (B, L) float32 CUDA waveform into the (B, T, n_mels) dB scratch `db`,
+    counted nowhere (`chip_smoke.py` times it alone on preallocated
+    buffers). `csrc/log_mel_radix8dif.cu` reflects inside the kernel; the
+    other sources read the wrapper's reflect-padded copy. Returns (library,
+    device index, stream) for the epilogue."""
+    device = waveform.device
+    filterbank = (sample_rate, n_fft, n_mels, float(f_min),
+                  sample_rate / 2.0 if f_max is None else float(f_max), mel_scale, norm, device)
+    lib = _build.load(source)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    dev_index = device.index if device.index is not None else torch.cuda.current_device()
+    _SPECTRA[source](lib, dev_index, waveform, n_fft, hop_length, db.shape[1], filterbank, db,
+                     stream)
+    return lib, dev_index, stream
+
+
+@functools.lru_cache(maxsize=16)
+def radix8_occupancy(n_fft: int, device_index: int) -> dict[str, int]:
+    """The launch shape of `csrc/log_mel_radix8dif.cu`'s n_fft instance on a
+    CUDA device, from its `log_mel_radix8dif_occupancy`: warps a block,
+    blocks an SM, warps an SM, registers a thread, shared bytes a block."""
+    lib = _build.load("log_mel_radix8dif")
+    out = (ctypes.c_int * 4)()
+    _build.launch(lib, lib.log_mel_radix8dif_occupancy, device_index, n_fft, out)
+    warps, blocks, regs, smem = out
+    return {"warps_per_block": warps, "blocks_per_sm": blocks, "warps_per_sm": warps * blocks,
+            "registers": regs, "smem_bytes": smem}
 
 
 def log_mel_radix16dif_fused(
@@ -429,8 +461,9 @@ def log_mel_radix4dif_fused(
     spec_mask_bounds: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, L) f32 waveform -> (B, n_mels, T) f32 log-mel, for n_fft % 512
-    == 0 and hop % 128 == 0 (`csrc/log_mel_mixed_radix.cu`, or
-    `csrc/log_mel_radix8dif.cu` at n_fft 1024-8192, powers of two): the same
+    == 0 and hop % 128 == 0 (`csrc/log_mel_radix8dif.cu` at the powers of
+    two from 512 to 8192, `csrc/log_mel_mixed_radix.cu` at 1536 and the other
+    n_fft): the same
     function and two forms as `log_mel_radix16dif_fused`. A 512/128
     checkpoint and the analyzer's 0.064 s windows run it. `dft_passes` 5 and
     6 raise, as in the JAX package (its 3-way split exists only for the
@@ -552,11 +585,11 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream
     _build.launch(lib, lib.log_mel_radix8dif_launch, dev_index, x.data_ptr(), x.shape[0],
             x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle_rn.data_ptr(),
             twiddle_fft.data_ptr(), mel_start.data_ptr(), mel_offset.data_ptr(),
-            mel_weight.data_ptr(), mel_start.numel(), mel_weight.numel(), db.data_ptr(),
-            stream)
+            mel_weight.data_ptr(), mel_start.numel(), db.data_ptr(), stream)
 
 
 def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
+    x = stft_ops.reflect_pad(x, n_fft // 2)  # (B, L + n_fft), contiguous
     window, twiddle = _twiddles_mixed_radix(n_fft, x.device)
     mel_start, mel_offset, mel_weight = mel_bands(*filterbank)
     _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
@@ -579,6 +612,7 @@ def dft_fold_splits(n_rows: int, bin_tiles: int, sms: int) -> int:
 
 
 def _spectrum_dft_fold(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
+    x = stft_ops.reflect_pad(x, n_fft // 2)
     consts = _dft_fold_constants(n_fft, x.device)
     table = mel_bin_table(*filterbank)
     splits = dft_fold_splits(db.shape[0] * t, consts.shape[1] // DFT_BIN_TILE,
@@ -617,7 +651,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _EPILOGUE = [_I, _P, _I, _I, _I, _I, _F, _I, _F, _P, _P, _P]
 _build.declare("log_mel_radix8dif", {
     "log_mel_radix8dif_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _P, _P],
+                                 _I, _P, _P],
+    "log_mel_radix8dif_occupancy": [_I, _I, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
 })
 _build.declare("log_mel_mixed_radix", {

@@ -55,7 +55,7 @@ toolkit. Phases:
    logits clips/s and classify_wave latency with and without the switch,
    and a profiler split of the fused step;
 16. TPU-kernel rows 3-6 (on the mixed-radix log-mel kernel, or the radix-8
-   one at n_fft 2048), and rows 1-2 at n_fft the radix-8 kernel does not
+   one at n_fft 512 and 2048), and rows 1-2 at n_fft the radix-8 kernel does not
    take (6144/512, 3072/768, 12288/1536, 16384/1024): each row against its
    plain version in float64 on seeded noise at its shapes, the fused rows in
    both forms with edge bounds, row 3's training form also at 64 x 8 s;
@@ -65,7 +65,13 @@ toolkit. Phases:
    `MelFrontend(backend="pallas")`, their launch counts read around the
    run; each row timed at 128 x 5 s at its main shape beside its bound,
    plain version and yardstick; then both log-mel sources side by side at
-   rows 1-2's shapes;
+   rows 1-2's shapes; then the radix-8 source alone: each instance's warps
+   an SM, registers and shared memory (`log_mel_radix8dif_occupancy`), its
+   spectrum kernel alone beside the whole call at rows 1-2's shapes and at
+   512/128 (both forms, where it is timed against the mixed-radix source
+   too), two calls bit-equal, and one call captured as a CUDA graph whose
+   only nodes are the spectrum kernel and the epilogue (no reflect-pad
+   gather);
 17. the entry points at n_fft 512 / hop 128 (row 3): the serving engine,
    one training epoch of `train.main` (row 3's masked form) on phase 9's
    corpus and the train step's time and device share at that front end,
@@ -101,6 +107,7 @@ result. The line before the last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -183,17 +190,18 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def log_mel_bound_ms(batch: int, length: int, nnz: int, n_fft: int = N_FFT, hop: int = HOP,
                      n_mels: int = N_MELS) -> dict[str, float]:
     """Least times for the log-mel function at this shape, in ms: "bytes"
-    (padded waveform read once, output written once) over HBM bandwidth,
-    "operations" (f32) over the CUDA-core peak, and "bytes_with_scratch",
-    the two-pass design's own floor, which also writes and reads back its
-    (B, T, n_mels) dB scratch. Operations: 5·N·log2(N) per N-point complex
-    FFT, one complex FFT per two real frames; 3 per power bin; 2 per mel
-    weight; 5 per output cell. The training form also reads (B, 4) bounds,
-    16 bytes an example, which this counts in neither form (< 0.01 %).
-    Both kernels compute this one function, so it bounds both."""
+    (the (B, L) waveform read once, output written once; the reflect pad
+    is an index map, not data) over HBM bandwidth, "operations" (f32) over
+    the CUDA-core peak, and "bytes_with_scratch", the two-pass design's own
+    floor, which also writes and reads back its (B, T, n_mels) dB scratch.
+    Operations: 5·N·log2(N) per N-point complex FFT, one complex FFT per
+    two real frames; 3 per power bin; 2 per mel weight; 5 per output cell.
+    The training form also reads (B, 4) bounds, 16 bytes an example, which
+    this counts in neither form (< 0.01 %). Both kernels compute this one
+    function, so it bounds both."""
     t = 1 + length // hop
     out_bytes = 4 * batch * n_mels * t
-    bytes_moved = 4 * batch * (length + n_fft) + out_bytes
+    bytes_moved = 4 * batch * length + out_bytes
     frames = batch * t
     flops = (frames / 2 * 5 * n_fft * math.log2(n_fft)
              + frames * (3 * (n_fft // 2 + 1) + 2 * nnz) + 5 * frames * n_mels)
@@ -1542,6 +1550,7 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}
     compare_sources(dev, card, rng)
+    radix8_design(dev, card, rng)
     return rows
 
 
@@ -1550,12 +1559,13 @@ def compare_sources(dev, card: str, rng: np.random.Generator, shapes=SOURCE_SHAP
     """Two log-mel sources at each of `shapes`, through
     `mel_kernels.run_source` (launches counted nowhere): each against the
     plain version in float64 (normalize on; tol 2e-3), then timed by CUDA
-    events, alternating, twice each. `cuda_route` sends these n_fft to the
-    first source; the lines say where each source wins."""
+    events, alternating, twice each. `cuda_route` sends each shape to one
+    of the two, marked "(routed)"; the lines say where each source wins."""
     kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None,
               normalize=True, eps=1e-8)
     for alg, b, length, n_fft, hop, masked in shapes:
-        check(mel_kernels.cuda_route(alg, n_fft) == sources[0], f"{alg} at {n_fft} routes")
+        routed = mel_kernels.cuda_route(alg, n_fft)
+        check(routed in sources, f"{alg} at {n_fft} routes to one of {sources}")
         x = torch.from_numpy(synth_clips(rng, b, length)).to(dev)
         bounds = (edge_bounds(b, 1 + length // hop, torch.Generator().manual_seed(16)).to(dev)
                   if masked else None)
@@ -1572,9 +1582,118 @@ def compare_sources(dev, card: str, rng: np.random.Generator, shapes=SOURCE_SHAP
                 times[s].append(cuda_ms(run, iters))
         print(f"phase {phase}: [{card}] sources at {alg} {n_fft}/{hop} B={b} x {length / SR:g} s"
               f"{', masked' if masked else ''}, normalize: " + "; ".join(
-                  f"{s} {times[s][0]:.4f} / {times[s][1]:.4f} ms (max|- plain f64| "
-                  f"{errs[s]:.3e})" for s in sources))
+                  f"{s}{' (routed)' if s == routed else ''} {times[s][0]:.4f} / "
+                  f"{times[s][1]:.4f} ms (max|- plain f64| {errs[s]:.3e})" for s in sources))
         check(max(errs.values()) <= 2e-3, f"both sources vs plain at {alg} {n_fft}/{hop}")
+
+
+# the radix-8 source's previous design (u rows and constants in shared
+# memory): warps an SM at each n_fft, the floor the new one must keep
+RADIX8_PREVIOUS_WARPS = {1024: 24, 2048: 8, 4096: 7, 8192: 3}
+# row 3's shapes at 512/128, where the radix-8 source's smallest instance is
+# timed against the mixed-radix one: the serving batch and the train step's
+# masked front end
+RADIX8_512_SHAPES = (("radix4dif_fused", BATCH, CLIP, 512, 128, False),
+                     ("radix4dif_fused", 64, TRAIN_CLIP, 512, 128, True))
+
+
+def radix8_design(dev, card: str, rng: np.random.Generator) -> None:
+    """`csrc/log_mel_radix8dif.cu` alone: each instance's launch shape from
+    its `log_mel_radix8dif_occupancy` (warps an SM no fewer than the
+    previous design's); at every SOURCE_SHAPES shape and at 512/128 (both
+    forms) the spectrum kernel alone (CUDA events on preallocated buffers,
+    as the profiler may drop kernel records: PERF.md §7) beside the whole
+    call (`run_source`), and two calls bit-equal; one wrapper call captured
+    as a CUDA graph: two kernel nodes, each named, the spectrum kernel and
+    the epilogue."""
+    for n_fft in mel_kernels.RADIX8_N_FFT:
+        occ = mel_kernels.radix8_occupancy(n_fft, dev.index or 0)
+        print(f"phase 16: [{card}] log_mel_radix8dif n_fft {n_fft}: {occ['warps_per_sm']} warps "
+              f"an SM ({occ['blocks_per_sm']} blocks of {occ['warps_per_block']}), "
+              f"{occ['registers']} registers a thread, {occ['smem_bytes']} shared bytes a block "
+              f"(previous design {RADIX8_PREVIOUS_WARPS.get(n_fft, '-')} warps an SM)")
+        check(occ["warps_per_sm"] >= RADIX8_PREVIOUS_WARPS.get(n_fft, 1),
+              f"radix-8 warps an SM at {n_fft} no fewer than before")
+    kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None,
+              normalize=True, eps=1e-8)
+    for alg, b, length, n_fft, hop, masked in SOURCE_SHAPES + RADIX8_512_SHAPES:
+        x = torch.from_numpy(synth_clips(rng, b, length)).to(dev)
+        bounds = (edge_bounds(b, 1 + length // hop, torch.Generator().manual_seed(16)).to(dev)
+                  if masked else None)
+        db = torch.empty((b, 1 + length // hop, N_MELS), dtype=torch.float32, device=dev)
+
+        def spectrum():
+            mel_kernels.spectrum_only("log_mel_radix8dif", x, SR, n_fft, hop, N_MELS, db)
+
+        def call():
+            return mel_kernels.run_source("log_mel_radix8dif", x, SR, n_fft, hop, N_MELS,
+                                          spec_mask_bounds=bounds, **kw)
+
+        equal = torch.equal(call(), call())
+        iters = 20 if b * length > 5e6 else 50
+        times = [cuda_ms(f, iters) for f in (spectrum, call, spectrum, call)]
+        print(f"phase 16: [{card}] log_mel_radix8dif at {alg} {n_fft}/{hop} B={b} x "
+              f"{length / SR:g} s{', masked' if masked else ''}: spectrum kernel alone "
+              f"{times[0]:.4f} / {times[2]:.4f} ms, the whole call {times[1]:.4f} / "
+              f"{times[3]:.4f} ms; two calls bit-equal: {equal}")
+        check(equal, f"two radix-8 calls give equal bits at {n_fft}/{hop}")
+        del x, db
+    compare_sources(dev, card, rng, RADIX8_512_SHAPES)
+
+    # the launches of one wrapper call, as the nodes of a CUDA graph that
+    # captures it (the profiler here drops kernel records: PERF.md §7)
+    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+    wrapper = mel_kernels.log_mel_radix16dif_fused
+    eager = wrapper(x, SR, N_FFT, HOP, N_MELS, normalize=True)
+    nodes, graph_out = graph_nodes(lambda: wrapper(x, SR, N_FFT, HOP, N_MELS, normalize=True))
+    print(f"phase 16: [{card}] one log_mel_radix16dif_fused call at {N_FFT}/{HOP}, B={BATCH}, "
+          f"captured as a CUDA graph: {len(nodes)} nodes {nodes}; replay equals the eager call: "
+          f"{torch.equal(graph_out, eager)}")
+    stems = ("log_mel_radix8dif_kernel", "log_mel_epilogue_kernel")
+    found = [[stem for stem in stems if name and stem in name] for _, name in nodes]
+    check([kind for kind, _ in nodes] == ["kernel", "kernel"]
+          and sorted(sum(found, [])) == sorted(stems) and all(len(f) == 1 for f in found),
+          "the radix-8 route launches the spectrum kernel and the epilogue, nothing else")
+    check(torch.equal(graph_out, eager), "the captured call replays the eager one")
+
+
+# CUgraphNodeType names (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+
+
+def graph_nodes(fn) -> tuple[list[tuple[str, str | None]], torch.Tensor]:
+    """Capture fn() (warm) into a CUDA graph and list its nodes through
+    libcuda's graph calls: (type, the kernel's symbol for a kernel node),
+    in the graph's order; then replay it and return its output. Fails
+    where libcuda cannot name a kernel node."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    handles = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(raw, handles, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    nodes = []
+    for handle in handles:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(handle), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType")
+        name = None
+        if kind.value == 0:
+            check(hasattr(cuda, "cuFuncGetName"), "libcuda has cuFuncGetName (CUDA 12.3 on)")
+            params = (ctypes.c_void_p * 16)()  # CUDA_KERNEL_NODE_PARAMS: first the CUfunction
+            text = ctypes.c_char_p()
+            check(cuda.cuGraphKernelNodeGetParams(ctypes.c_void_p(handle), params) == 0
+                  and bool(params[0])
+                  and cuda.cuFuncGetName(ctypes.byref(text), ctypes.c_void_p(params[0])) == 0,
+                  "libcuda names the kernel node")
+            name = text.value.decode()
+        nodes.append((GRAPH_NODE_TYPES.get(kind.value, str(kind.value)), name))
+    return nodes, out
 
 
 def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,

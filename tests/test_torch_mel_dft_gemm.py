@@ -179,12 +179,12 @@ def test_jax_messages(algorithm, kw):
     ("bf16x3", 16383, "log_mel_dft_gemm"),
     ("f32", 2048, "log_mel_radix8dif"),
     ("bf16x3", 1024, "log_mel_radix8dif"),
-    ("f32", 512, "log_mel_mixed_radix"),
+    ("f32", 512, "log_mel_radix8dif"),
     ("bf16x3", 1536, "log_mel_mixed_radix"),
 ])
 def test_cuda_route(algorithm, n_fft, route):
     """By n_fft alone: n_fft % 4 != 0 goes to the DFT GEMM kernel, every
-    other n_fft keeps its source (radix-8 at 1024-8192, mixed-radix else)."""
+    other n_fft keeps its source (radix-8 at 512-8192, mixed-radix else)."""
     assert mel_kernels.cuda_route(algorithm, n_fft) == route
     assert (_build.CSRC / f"{route}.cu").exists()
 

@@ -249,7 +249,7 @@ class TestErrors:
     ("radix16dif_fused", 16384, "log_mel_mixed_radix"),
     ("radix8dif_fused", 1024, "log_mel_radix8dif"),
     ("radix8dif_fused", 3072, "log_mel_mixed_radix"),
-    ("radix4dif_fused", 512, "log_mel_mixed_radix"),
+    ("radix4dif_fused", 512, "log_mel_radix8dif"),
     ("radix4dif_fused", 1536, "log_mel_mixed_radix"),
     ("radix4_fused", 2048, "log_mel_radix8dif"),
     ("radix2_fused", 768, "log_mel_mixed_radix"),
@@ -258,7 +258,7 @@ class TestErrors:
 ])
 def test_cuda_route(algorithm, n_fft, route):
     """The source each shape runs on the card, by n_fft alone: the radix-8
-    kernel at 1024, 2048, 4096 and 8192, the mixed-radix kernel for the
+    kernel at 512, 1024, 2048, 4096 and 8192, the mixed-radix kernel for the
     rest."""
     assert mel_kernels.cuda_route(algorithm, n_fft) == route
     assert (_build.CSRC / f"{route}.cu").exists()
