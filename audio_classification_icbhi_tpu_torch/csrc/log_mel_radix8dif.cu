@@ -98,6 +98,7 @@
 #include <stdint.h>
 
 #include "log_mel_epilogue.cuh"
+#include "log_mel_reflect.cuh"
 
 namespace {
 
@@ -132,17 +133,6 @@ __host__ __device__ constexpr int warp_words(int e) {
 // bins, so that the 32 lanes' bit-reversed bins (k = 32q + c at P = 4) fall
 // on distinct banks.
 __device__ __forceinline__ int pw_index(int k) { return k + (k >> 5); }
-
-// numpy's reflect of waveform index o, which may lie before 0 or past
-// length - 1 (a pad longer than the signal repeats with period 2(length - 1)),
-// into [0, length): `stft_ops.reflect_pad` of the port, index by index.
-__device__ __forceinline__ int reflect_index(int o, int length) {
-  if (length == 1) return 0;
-  const int period = 2 * (length - 1);
-  int r = o % period;
-  if (r < 0) r += period;
-  return r >= length ? period - r : r;
-}
 
 __device__ __forceinline__ void cmul(float& re, float& im, float2 w) {
   const float r = re * w.x - im * w.y;

@@ -31,7 +31,9 @@ DFT on `wgmma` (TF32, three hi/lo products) fed by a TMA ring, at n_fft % 4
 (n_fft, device) (`_dft_fold_constants`, 1.08 GB at n_fft 16,383);
 `csrc/log_mel_radix8dif.cu` at n_fft 512, 1024, 2048, 4096 and 8192, where it is
 the fastest (`chip_smoke.py` phases 16 and 18 time the sources side by side);
-`csrc/log_mel_mixed_radix.cu` at every other n_fft. All take any hop, up to
+`csrc/log_mel_mixed_radix.cu` at every other n_fft, one warp a frame pair
+at the n_fft its launch function lists and one block a pair elsewhere
+(`mixed_radix_occupancy` reports which). All take any hop, up to
 one limit, `MIXED_RADIX_MAX_N_FFT`; beyond it the CUDA route raises
 NotImplementedError naming the algorithm's ROADMAP.md row.
 
@@ -54,9 +56,10 @@ Each CUDA source's header note says what bounds its kernel on the card and
 what its design does about it; the epilogue kernel is
 `csrc/log_mel_epilogue.cuh`, which all include. A wrapper allocates the dB
 scratch and the output and launches the spectrum kernel and the epilogue on
-the current stream: two launches on the radix-8 source, which reflects each
-edge frame's samples inside the kernel; the other sources read a
-reflect-padded copy that the wrapper gathers first (as the TPU wrappers do).
+the current stream: two launches on the radix-8 and mixed-radix sources,
+which reflect each edge frame's samples inside the kernel; the DFT GEMM
+alone reads a reflect-padded copy that the wrapper gathers first (as the TPU
+wrappers do).
 """
 
 from __future__ import annotations
@@ -101,8 +104,9 @@ HOPPER_SMEM_OPTIN = 232_448
 
 
 def mixed_radix_smem_bytes(n_fft: int) -> int:
-    """Shared memory a block of `csrc/log_mel_mixed_radix.cu` takes (its
-    `spectrum_smem_bytes`): the N complex values, then two power spectra."""
+    """Shared memory a block of `csrc/log_mel_mixed_radix.cu`'s block path
+    takes (its `block_smem_bytes`): the N complex values, then two power
+    spectra. Every n_fft the warp path takes needs less a pair (8 N bytes)."""
     return 8 * n_fft + 8 * (n_fft // 2 + 1)
 
 
@@ -248,11 +252,21 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
 
 @functools.lru_cache(maxsize=8)
 def _twiddles_mixed_radix(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Window and W_N^j = exp(-2πij/N) for every j < N, built in float64:
-    the mixed-radix FFT stages and odd-factor combine index the one table."""
-    j = np.arange(n_fft)
+    """`csrc/log_mel_mixed_radix.cu`'s constants of n_fft = P * m (P its
+    largest power-of-two factor), built in float64, for either path, as the
+    launch function picks the path: window; W_N^j for every j < N (the block
+    path); the P-point FFT's stage twiddles W_{2h}^j at [h - 1 + j] (P - 1),
+    W_N^{r k0} as (m - 1, P) for r = 1 .. m - 1, and W_m^j (m) (the warp
+    path)."""
+    p = n_fft & -n_fft
+    m = n_fft // p
+    stages = np.concatenate([np.exp(-2j * np.pi * np.arange(h) / (2 * h))
+                             for h in (1 << np.arange(p.bit_length() - 1))])
+    tables = (np.exp(-2j * np.pi * np.arange(n_fft) / n_fft), stages,
+              np.exp(-2j * np.pi * np.outer(np.arange(1, m), np.arange(p)) / n_fft),
+              np.exp(-2j * np.pi * np.arange(m) / m))
     return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
-            _dev(_complex_pairs(np.exp(-2j * np.pi * j / n_fft)), torch.float32, device))
+            *(_dev(_complex_pairs(t), torch.float32, device) for t in tables))
 
 
 # `csrc/log_mel_dft_gemm.cu`'s tiles: folded samples a TMA box row (128
@@ -381,8 +395,8 @@ def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: 
     """The first half of `run_source`: source `source`'s spectrum pass of a
     (B, L) float32 CUDA waveform into the (B, T, n_mels) dB scratch `db`,
     counted nowhere (`chip_smoke.py` times it alone on preallocated
-    buffers). `csrc/log_mel_radix8dif.cu` reflects inside the kernel; the
-    other sources read the wrapper's reflect-padded copy. Returns (library,
+    buffers). The radix-8 and mixed-radix sources reflect inside the
+    kernel; the DFT GEMM reads the wrapper's reflect-padded copy. Returns (library,
     device index, stream) for the epilogue."""
     device = waveform.device
     filterbank = (sample_rate, n_fft, n_mels, float(f_min),
@@ -393,6 +407,21 @@ def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: 
     _SPECTRA[source](lib, dev_index, waveform, n_fft, hop_length, db.shape[1], filterbank, db,
                      stream)
     return lib, dev_index, stream
+
+
+@functools.lru_cache(maxsize=16)
+def mixed_radix_occupancy(n_fft: int, device_index: int) -> dict:
+    """The launch shape of n_fft on `csrc/log_mel_mixed_radix.cu` on a CUDA
+    device, from its `log_mel_mixed_radix_occupancy`: path ("block",
+    "registers", "shared"), warps a block, blocks an SM, warps an SM,
+    registers a thread, shared bytes a block."""
+    lib = _build.load("log_mel_mixed_radix")
+    out = (ctypes.c_int * 5)()
+    _build.launch(lib, lib.log_mel_mixed_radix_occupancy, device_index, n_fft, out)
+    path, warps, blocks, regs, smem = out
+    return {"path": ("block", "registers", "shared")[path], "warps_per_block": warps,
+            "blocks_per_sm": blocks, "warps_per_sm": warps * blocks, "registers": regs,
+            "smem_bytes": smem}
 
 
 @functools.lru_cache(maxsize=16)
@@ -589,11 +618,10 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream
 
 
 def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
-    x = stft_ops.reflect_pad(x, n_fft // 2)  # (B, L + n_fft), contiguous
-    window, twiddle = _twiddles_mixed_radix(n_fft, x.device)
+    tables = _twiddles_mixed_radix(n_fft, x.device)  # window, then both paths' twiddles
     mel_start, mel_offset, mel_weight = mel_bands(*filterbank)
     _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
-            x.shape[1], n_fft, hop, t, window.data_ptr(), twiddle.data_ptr(),
+            x.shape[1], n_fft, hop, t, *(table.data_ptr() for table in tables),
             mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
             mel_start.numel(), db.data_ptr(), stream)
 
@@ -656,7 +684,9 @@ _build.declare("log_mel_radix8dif", {
     "log_mel_epilogue_launch": _EPILOGUE,
 })
 _build.declare("log_mel_mixed_radix", {
-    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _P, _P],
+    "log_mel_mixed_radix_occupancy": [_I, _I, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
 })
 _build.declare("log_mel_dft_gemm", {

@@ -71,14 +71,22 @@ toolkit. Phases:
    512/128 (both forms, where it is timed against the mixed-radix source
    too), two calls bit-equal, and one call captured as a CUDA graph whose
    only nodes are the spectrum kernel and the epilogue (no reflect-pad
-   gather);
+   gather); then the mixed-radix source alone: each path's launch shape
+   (`log_mel_mixed_radix_occupancy`: the warp instances, with the rows in
+   registers or in shared memory, and the block path), its spectrum kernel
+   alone beside the whole call at 768/256, 800/200, 1536/384, 400/160,
+   1280/256 and on the block path at 1200/300 and 4036/1009, two calls
+   bit-equal at each, and one row-5 call captured as a CUDA graph (the warp
+   spectrum kernel and the epilogue, nothing else); row 3 is also timed at
+   1536/384;
 17. the entry points at n_fft 512 / hop 128 (row 3): the serving engine,
    one training epoch of `train.main` (row 3's masked form) on phase 9's
    corpus and the train step's time and device share at that front end,
    `analyze.main` at 1 s and 0.064 s windows, and the serving
-   engine at 768/256 (row 5), each with the launch counts read around it
-   and the card held against the CPU; wav -> logits clips/s and
-   classify_wave latency at 512/128;
+   engine at 768/256 (row 5) and 1536/384 (row 3 on the mixed-radix
+   source), each with the launch counts read around it and the card held
+   against the CPU; wav -> logits clips/s and classify_wave latency at
+   512/128 and 768/256;
 18. TPU-kernel row 7 (`bf16x3` / `f32`) on the DFT GEMM log-mel kernel (a
    folded real-input DFT on `wgmma`, fed by TMA; its SASS must hold HGMMA and
    UTMALDG, counted by `cuobjdump -sass`) at
@@ -102,6 +110,11 @@ toolkit. Phases:
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. No CUDA device: exit 1.
+
+    python3 chip_smoke.py --parent DIR
+
+times the mixed-radix log-mel source of an earlier checkout unpacked in DIR
+beside this one's instead (`compare_parent`), and runs no phase.
 """
 
 from __future__ import annotations
@@ -489,11 +502,13 @@ def main() -> int:
               for alg, (line, (n_fft, _), _) in MIXED_ROWS.items()),
             ("log_mel_radix4dif_fused_masked", MIXED_ROWS["radix4dif_fused"][0], 512,
              mixed["radix4dif_fused_masked"]),
+            ("log_mel_radix4dif_fused_1536", MIXED_ROWS["radix4dif_fused"][0], 1536,
+             mixed["radix4dif_fused_1536"]),
             *((f"log_mel_{alg}", line, B7_MAIN[0], dft_gemm[alg])
               for alg, line in (("bf16x3", ":518"), ("f32", ":497"))))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"{csrc}{mel_kernels.cuda_route(name[8:].removesuffix('_masked'), n_fft)}.cu",
+         "source": f"{csrc}{mel_kernels.cuda_route(wrapper_of(name), n_fft)}.cu",
          "replaces": pallas_mel + line, **{k: numbers[k] for k in serving}}
         for name, line, n_fft, numbers in rows]
         + [{"name": name, "route": "cuda", "source": csrc + source,
@@ -503,6 +518,11 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def wrapper_of(row_name: str) -> str:
+    """The algorithm of a kernel-table row name: log_mel_<alg>[_masked][_1536]."""
+    return row_name.removeprefix("log_mel_").removesuffix("_1536").removesuffix("_masked")
 
 
 def phase7_masked_kernel(dev, rng) -> float:
@@ -1392,16 +1412,18 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
     is printed beside); rows 4 and 6 through `MelFrontend(backend="pallas")`
     with their counts read around the run; then each row timed at 128 x 5 s
     at its main shape, row 3's training form at 64 x 8 s, and the two
-    sources side by side (`compare_sources`). Returns the kernel-line
-    numbers of rows 3-6 and row 3's training form but their launches, which
-    rows 3 and 5 take from phase 17 and rows 4 and 6 from the MelFrontend
-    run here."""
+    sources side by side (`compare_sources`), row 3 also at 1536/384; then
+    each source alone (`radix8_design`, `mixed_radix_design`). Returns the
+    kernel-line numbers of rows 3-6, row 3's training form and row 3 at
+    1536/384 but their launches, which rows 3 and 5 take from phase 17 and
+    rows 4 and 6 from the MelFrontend run here."""
     rng = np.random.default_rng(16)  # its own stream: the inputs do not depend on earlier phases
     gen = torch.Generator().manual_seed(16)
     wrappers = mel_kernels.WRAPPERS
     before = {alg: (fn.launches, fn.launches_masked) for alg, fn in wrappers.items()}
     calls = {alg: [0, 0] for alg in wrappers}
     errs = {(alg, masked): [] for alg in wrappers for masked in (False, True)}
+    errs_at = {}  # (alg, n_fft, hop) -> errors of both forms
     cases = [(alg, shape) for alg, (_, _, shapes) in MIXED_ROWS.items() for shape in shapes]
     cases += list(MIXED_RADIX_ROWS_1_2)
 
@@ -1434,6 +1456,7 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
                 line += (f" (plain f32 on the card {plain_err:.3e}; {active:.3e} within 25 dB "
                          f"of the example's peak)")
             errs[alg, masked].append(err)
+            errs_at.setdefault((alg, n_fft, hop), []).append(err)
             print(f"{line} (tol {tol:g})")
             check(err <= tol, f"{alg} vs plain at {n_fft}/{hop} B={b} {what}")
 
@@ -1514,7 +1537,9 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
 
     rows = {}
     x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
-    for alg, (_, (n_fft, hop), _) in MIXED_ROWS.items():
+    timed = [(alg, alg, n_fft, hop) for alg, (_, (n_fft, hop), _) in MIXED_ROWS.items()]
+    timed.append(("radix4dif_fused_1536", "radix4dif_fused", 1536, 384))
+    for key, alg, n_fft, hop in timed:
         kw = dict(normalize=True)
         bound_ms, bound_by, floors = bound(BATCH, CLIP, dev, n_fft, hop)
         kernel_ms = cuda_ms(lambda: wrappers[alg](x, SR, n_fft, hop, N_MELS, **kw), iters=50)
@@ -1526,12 +1551,14 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
               f"{floors['bytes']:.4f}, operations {floors['operations']:.4f}, bytes with the dB "
               f"scratch {floors['bytes_with_scratch']:.4f})")
-        # row 3's forms are two lines of the kernel table; rows 4-6 one each
-        err = errs[alg, False] + ([] if alg == "radix4dif_fused" else errs[alg, True])
-        rows[alg] = {"max_abs_err": max(err), "ms": kernel_ms, "plain_ms": plain_ms,
+        # row 3's forms are two lines of the kernel table (and 1536/384 a
+        # third, on the mixed-radix source); rows 4-6 one each
+        err = (errs_at[alg, n_fft, hop] if key != alg else
+               errs[alg, False] + ([] if alg == "radix4dif_fused" else errs[alg, True]))
+        rows[key] = {"max_abs_err": max(err), "ms": kernel_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        if alg in launches:  # rows 4 and 6; rows 3 and 5 count in phase 17
-            rows[alg]["launches"] = launches[alg]
+        if key in launches:  # rows 4 and 6; rows 3 and 5 count in phase 17
+            rows[key]["launches"] = launches[key]
     # row 3's training form at the train step's front-end batch (64 x 8 s)
     xm = torch.from_numpy(synth_clips(rng, 64, TRAIN_CLIP)).to(dev)
     bounds = edge_bounds(64, 1 + TRAIN_CLIP // 128, torch.Generator().manual_seed(17)).to(dev)
@@ -1551,6 +1578,7 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
         "library_ms": library_ms}
     compare_sources(dev, card, rng)
     radix8_design(dev, card, rng)
+    mixed_radix_design(dev, card, rng)
     return rows
 
 
@@ -1657,6 +1685,203 @@ def radix8_design(dev, card: str, rng: np.random.Generator) -> None:
     check(torch.equal(graph_out, eager), "the captured call replays the eager one")
 
 
+# the mixed-radix source alone: rows 5, 6 and 3 at their shapes, the 25 ms /
+# 10 ms speech front end (400/160, two pairs a warp), 1280/256, the other
+# warp instances at 448/160 (the radix-7 butterfly; a hop that does not
+# divide n_fft) and 480/160 (m = 15), and its block path at 1200/300 (m = 75,
+# no warp instance) and 4036/1009 (m = 1009, a prime above 7: the direct
+# combine, 1,009 products a bin, so 8 clips); (batch, n_fft, hop)
+MIXED_DESIGN_SHAPES = ((BATCH, 768, 256), (BATCH, 800, 200), (BATCH, 1536, 384),
+                       (BATCH, 400, 160), (BATCH, 1280, 256), (BATCH, 448, 160),
+                       (BATCH, 480, 160), (BATCH, 1200, 300), (8, 4036, 1009))
+# n_fft whose launch shape phase 16 prints: every warp instance of the
+# instance of the source (the first nine), then some of its block path
+MIXED_OCCUPANCY_N_FFT = (400, 448, 480, 768, 800, 1280, 1536, 3072, 6144, 1200, 4036, 12288,
+                         16384)
+
+
+def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
+    """`csrc/log_mel_mixed_radix.cu` alone: the launch shape of each
+    MIXED_OCCUPANCY_N_FFT from `log_mel_mixed_radix_occupancy` (path, warps
+    an SM, registers, shared bytes; each warp instance on a warp path); at each
+    MIXED_DESIGN_SHAPES shape the whole call against the plain version in
+    float64 (normalize on, tol 2e-3), the spectrum kernel alone on
+    preallocated buffers beside the whole call (CUDA events, in turns), and
+    two calls bit-equal; one row-5 call at 768/256 captured as a CUDA graph:
+    two kernel nodes, the warp spectrum kernel and the epilogue, so no
+    reflect-pad gather."""
+    paths = {}
+    for n_fft in MIXED_OCCUPANCY_N_FFT:
+        occ = mel_kernels.mixed_radix_occupancy(n_fft, dev.index or 0)
+        paths[n_fft] = occ["path"]
+        print(f"phase 16: [{card}] log_mel_mixed_radix n_fft {n_fft} (P {n_fft & -n_fft}, m "
+              f"{n_fft // (n_fft & -n_fft)}): {occ['path']} path, {occ['warps_per_sm']} warps "
+              f"an SM ({occ['blocks_per_sm']} blocks of {occ['warps_per_block']}), "
+              f"{occ['registers']} registers a thread, {occ['smem_bytes']} shared bytes a block")
+        check(occ["warps_per_sm"] > 0, f"the mixed-radix source launches at n_fft {n_fft}")
+    check(all(paths[n] != "block" for n in MIXED_OCCUPANCY_N_FFT[:9]),
+          "every warp instance (rows 3, 5 and 6 among them) runs a warp path")
+    kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None,
+              normalize=True, eps=1e-8, spec_mask_bounds=None)
+    for b, n_fft, hop in MIXED_DESIGN_SHAPES:
+        x = torch.from_numpy(synth_clips(rng, b)).to(dev)
+        db = torch.empty((b, 1 + CLIP // hop, N_MELS), dtype=torch.float32, device=dev)
+
+        def spectrum():
+            mel_kernels.spectrum_only("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS, db)
+
+        def call():
+            return mel_kernels.run_source("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS, **kw)
+
+        want = mel_kernels.log_mel_fused_reference(x.double(), SR, n_fft, hop, N_MELS,
+                                                   normalize=True)
+        first = call()
+        err = (first.double() - want).abs().max().item()
+        del want
+        equal = torch.equal(first, call())
+        iters = 20 if n_fft == 4036 else 50
+        times = [cuda_ms(f, iters) for f in (spectrum, call, spectrum, call)]
+        print(f"phase 16: [{card}] log_mel_mixed_radix at {n_fft}/{hop} "
+              f"({mel_kernels.mixed_radix_occupancy(n_fft, dev.index or 0)['path']} path) "
+              f"B={b} x 5 s: spectrum kernel "
+              f"alone {times[0]:.4f} / {times[2]:.4f} ms, the whole call {times[1]:.4f} / "
+              f"{times[3]:.4f} ms; max|- plain f64| {err:.3e} (tol 2e-3); two calls bit-equal: "
+              f"{equal}")
+        check(err <= 2e-3, f"the mixed-radix source vs plain at {n_fft}/{hop}")
+        check(equal, f"two mixed-radix calls give equal bits at {n_fft}/{hop}")
+        del x, db, first
+
+    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+    wrapper = mel_kernels.log_mel_radix2_fused
+    eager = wrapper(x, SR, 768, 256, N_MELS, normalize=True)
+    nodes, graph_out = graph_nodes(lambda: wrapper(x, SR, 768, 256, N_MELS, normalize=True))
+    print(f"phase 16: [{card}] one log_mel_radix2_fused call at 768/256, B={BATCH}, captured as "
+          f"a CUDA graph: {len(nodes)} nodes {nodes}; replay equals the eager call: "
+          f"{torch.equal(graph_out, eager)}")
+    stems = ("log_mel_mixed_radix_warp_kernel", "log_mel_epilogue_kernel")
+    found = [[stem for stem in stems if name and stem in name] for _, name in nodes]
+    check([kind for kind, _ in nodes] == ["kernel", "kernel"]
+          and sorted(sum(found, [])) == sorted(stems) and all(len(f) == 1 for f in found),
+          "row 5 launches the warp spectrum kernel and the epilogue, nothing else")
+    check(torch.equal(graph_out, eager), "the captured call replays the eager one")
+
+
+# `--parent`: the mixed-radix source's shapes timed beside an earlier
+# checkout's, MIXED_DESIGN_SHAPES and rows 1-2's (batch, n_fft, hop) on it
+PARENT_SHAPES = MIXED_DESIGN_SHAPES + ((BATCH, 3072, 768), (BATCH, 6144, 512),
+                                       (BATCH, 12288, 1536), (BATCH, 16384, 1024))
+# run in a subprocess whose cwd is a checkout: loads this file, which then
+# imports that checkout's package
+PARENT_TIMER = """
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke_timer", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print(json.dumps(smoke.front_end_times()))
+"""
+
+
+def front_end_times() -> dict:
+    """The mixed-radix source's numbers in whichever checkout's package is
+    imported, through functions that checkout and this one share: at each
+    PARENT_SHAPES shape (seeded clips of 5 s) the dB form of the whole call
+    (`mel_kernels.run_source`) against the plain version in float64 (tol
+    1e-3 dB, unrestricted at n_fft >= 1536 and within 25 dB of each clip's
+    peak below, as PERF.md section 2 gates it; the mean and 99.99th
+    percentile over all cells are printed too), then the call with normalize
+    on timed by CUDA events; then wav -> logits clips/s
+    at 768/256 through a seeded serving checkpoint's engine (bf16 CNN, host
+    clock around 10 synchronized batches, twice)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None, eps=1e-8,
+              spec_mask_bounds=None)
+    out = {"calls": {}}
+    for b, n_fft, hop in PARENT_SHAPES:
+        x = torch.from_numpy(synth_clips(rng, b)).to(dev)
+
+        def call(normalize=True):
+            return mel_kernels.run_source("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS,
+                                          normalize=normalize, **kw)
+
+        want = mel_kernels.log_mel_fused_reference(x.double(), SR, n_fft, hop, N_MELS)
+        diff = (call(normalize=False).double() - want).abs()
+        errs = (diff.max().item(),
+                diff[want >= want.amax(dim=(1, 2), keepdim=True) - 25.0].max().item(),
+                diff.mean().item(), torch.quantile(diff.flatten().float(), 0.9999).item())
+        del want, diff
+        check(errs[0 if n_fft >= 1536 else 1] <= 1e-3,
+              f"the mixed-radix source vs plain at {n_fft}/{hop}: {errs}")
+        out["calls"][f"{n_fft}/{hop}"] = {"batch": b, "max_abs_err": errs,
+                                          "ms": cuda_ms(call, 20 if n_fft == 4036 else 50)}
+        del x
+    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = seeded_checkpoint(Path(tmp) / "serve.ckpt", mixed_precision=True,
+                                 head_scale=15.0, n_fft=768, hop_length=256)
+        engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+    rates = []
+    with torch.inference_mode():
+        for _ in range(3):
+            engine.model(features_from_wavs(engine.frontend, x))
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                logits = engine.model(features_from_wavs(engine.frontend, x))
+            torch.cuda.synchronize()
+            rates.append(BATCH * 10 / (time.perf_counter() - t0))
+    check(bool(torch.isfinite(logits).all()), "finite logits at 768/256")
+    out["wav_to_logits_768"] = {"clips_per_s": rates,
+                                "logit_sum": logits.float().sum().item()}
+    return out
+
+
+def compare_parent(parent: Path) -> int:
+    """`python3 chip_smoke.py --parent DIR`, DIR an unpacked earlier
+    checkout (`git archive <commit> | tar -x -C DIR`): `front_end_times` in
+    that checkout's package and in this one, each in its own process, in
+    turns (parent, this, this, parent); prints each shape's whole-call ms
+    and the wav -> logits clips/s side by side, the card's name and power
+    limit first. Exits non-zero on any failed check."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    runs = {"parent": [], "this": []}
+    for which in ("parent", "this", "this", "parent"):
+        root = parent.resolve() if which == "parent" else REPO
+        proc = subprocess.run([sys.executable, "-c", PARENT_TIMER, str(root),
+                               str(Path(__file__).resolve())],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"{which} ({root}):\n{proc.stdout[-4000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for shape in runs["this"][0]["calls"]:
+        got = {w: [r["calls"][shape] for r in rs] for w, rs in runs.items()}
+        print(f"--parent: [{card}] log_mel_mixed_radix {shape} B={got['this'][0]['batch']} x 5 s, "
+              f"whole call: this " + " / ".join(f"{c['ms']:.4f}" for c in got["this"])
+              + " ms, parent " + " / ".join(f"{c['ms']:.4f}" for c in got["parent"])
+              + " ms; dB |- plain f64| max over all cells / within 25 dB of the peak, mean, "
+              + "99.99th percentile: this {:.3e} / {:.3e}, {:.3e}, {:.3e}; parent {:.3e} / "
+              "{:.3e}, {:.3e}, {:.3e}".format(*got["this"][0]["max_abs_err"],
+                                              *got["parent"][0]["max_abs_err"]))
+    serve = {w: [r["wav_to_logits_768"] for r in rs] for w, rs in runs.items()}
+    print(f"--parent: [{card}] wav->logits at 768/256, batch {BATCH}, bf16 CNN: this "
+          + " / ".join(f"{v:.1f}" for s in serve["this"] for v in s["clips_per_s"])
+          + " clips/s, parent "
+          + " / ".join(f"{v:.1f}" for s in serve["parent"] for v in s["clips_per_s"])
+          + f" clips/s; logit sums {serve['this'][0]['logit_sum']:.4f} / "
+          f"{serve['parent'][0]['logit_sum']:.4f}")
+    return 0
+
+
 # CUgraphNodeType names (cuda.h)
 GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
 
@@ -1696,19 +1921,62 @@ def graph_nodes(fn) -> tuple[list[tuple[str, str | None]], torch.Tensor]:
     return nodes, out
 
 
+def serving_speed(engine: ClassifierEngine, x: torch.Tensor, host_clip: np.ndarray,
+                  card: str) -> None:
+    """Phase 17's serving numbers of one engine: wav -> logits clips/s at
+    batch 128 (host clock around 10 synchronized batches) with a traced
+    split, and classify_wave's latency over 50 calls."""
+    fe = engine.frontend
+    shape = f"{fe.n_fft}/{fe.hop_length}"
+    with torch.inference_mode():
+        def wav_to_logits():
+            return engine.model(features_from_wavs(fe, x))
+
+        for _ in range(3):
+            wav_to_logits()
+        torch.cuda.synchronize()
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            logits = wav_to_logits()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()), "finite logits")
+        print(f"phase 17: [{card}] wav->logits at {shape} ({fe.num_frames} frames), batch "
+              f"{x.shape[0]}, bf16 CNN: {x.shape[0] * reps / dt:.1f} clips/s "
+              f"({dt / reps * 1e3:.3f} ms per batch)")
+        steps = 3
+        kernels, busy_us, wall_us = trace_device(wav_to_logits, steps)
+    print(f"phase 17: [{card}] traced {steps} steps at {shape}: device busy "
+          f"{busy_us / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall "
+          f"({100 * busy_us / wall_us:.1f}%)")
+    for e in kernels[:10]:
+        print(f"phase 17:   {e.self_device_time_total / steps:9.1f} us/step "
+              f"{e.count // steps:3d}x  {kernel_name(e.key)}")
+    engine.warmup_latency()
+    lat_ms = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        engine.classify_wave(host_clip)
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 17: [{card}] classify_wave at {shape}, batch 1, host clip in: median "
+          f"{np.median(lat_ms):.3f} ms, p90 {np.percentile(lat_ms, 90):.3f} ms over 50 calls")
+
+
 def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
                          recording: Path) -> dict[str, int]:
-    """The entry points at n_fft 512 / hop 128 and 768/256, each run with
-    the launch counts zeroed before and read after: the serving engine on
-    seeded checkpoints (predict_probs on 128 clips of 5 s, classify_wave,
-    classify_files), held against the same engine on the CPU (16 clips);
-    one training epoch of `train.main` on phase 9's corpus at 512/128, and
-    the train step at that front end timed; then
-    `analyze.main` (parallel) with that epoch's checkpoint at 1 s windows
-    (512/128, 126 -> 125 frames) and 0.064 s windows (512/128, 9 -> 32
-    frames), the card's window probabilities against the CPU's; then wav
-    -> logits clips/s and classify_wave latency at 512/128. Returns the
-    launches of row 3 (each form apart) and row 5 over these runs."""
+    """The entry points at n_fft 512 / hop 128, 768/256 and 1536/384, each
+    run with the launch counts zeroed before and read after: the serving
+    engine on seeded checkpoints (predict_probs on 128 clips of 5 s,
+    classify_wave, classify_files) at all three, held against the same
+    engine on the CPU (16 clips); one training epoch of `train.main` on
+    phase 9's corpus at 512/128, and the train step at that front end timed;
+    then `analyze.main` (parallel) with that epoch's checkpoint at 1 s
+    windows (512/128, 126 -> 125 frames) and 0.064 s windows (512/128, 9 ->
+    32 frames), the card's window probabilities against the CPU's; then wav
+    -> logits clips/s and classify_wave latency at 512/128 and 768/256.
+    Returns the launches of row 3 (each form apart, and at 1536/384 apart)
+    and row 5 over these runs."""
     wrappers = mel_kernels.WRAPPERS
     k3, k5 = wrappers["radix4dif_fused"], wrappers["radix2_fused"]
 
@@ -1716,14 +1984,15 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
         return all(fn.launches + fn.launches_masked == 0
                    for a, fn in wrappers.items() if a != alg)
 
-    launches = {"radix4dif_fused": 0, "radix2_fused": 0}
+    launches = {"radix4dif_fused": 0, "radix2_fused": 0, "radix4dif_fused_1536": 0}
     clips = synth_clips(rng, BATCH)
     paths = []
     for i in range(3):
         paths.append(tmp / f"clip512_{i}.wav")
         write_wav(paths[-1], clips[i, ::2], SR // 2)
     engines = {}
-    for alg, n_fft, hop in (("radix4dif_fused", 512, 128), ("radix2_fused", 768, 256)):
+    for alg, n_fft, hop in (("radix4dif_fused", 512, 128), ("radix2_fused", 768, 256),
+                            ("radix4dif_fused", 1536, 384)):
         shape = dict(n_fft=n_fft, hop_length=hop)
         ckpt = seeded_checkpoint(tmp / f"serve_{n_fft}.ckpt", mixed_precision=True,
                                  head_scale=15.0, **shape)
@@ -1738,7 +2007,7 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
               f"{engine.frontend.num_frames} frames): launches {alg} {n}")
         check(engine.frontend._pallas_algorithm() == alg and n > 0 and others_idle(alg),
               f"the {n_fft}/{hop} serving path ran {alg} and no other log-mel kernel")
-        launches[alg] += n
+        launches[alg if n_fft != 1536 else "radix4dif_fused_1536"] += n
         check(probs.shape == (BATCH, 4) and bool(np.isfinite(probs).all()), "probs shape/finite")
         p1 = np.array(list(one["probabilities"].values()))
         err_one = float(np.abs(p1 - probs[0]).max())
@@ -1839,41 +2108,10 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
               f"checkpoint, bf16 CNN: max|cuda - cpu| probability = {err:.3e} (tol 5e-3)")
         check(bool(np.isfinite(gpu).all()) and err <= 5e-3, f"analyzer at {duration} s, cuda vs cpu")
 
-    # speed at 512/128: wav -> logits at batch 128, and batch-1 latency
-    engine = engines[512]
+    # speed at 512/128 and 768/256: wav -> logits at batch 128, and batch-1 latency
     x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
-    with torch.inference_mode():
-        def wav_to_logits():
-            return engine.model(features_from_wavs(engine.frontend, x))
-
-        for _ in range(3):
-            wav_to_logits()
-        torch.cuda.synchronize()
-        reps = 10
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            logits = wav_to_logits()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        check(bool(torch.isfinite(logits).all()), "finite logits")
-        print(f"phase 17: [{card}] wav->logits at 512/128 (626 frames), batch {BATCH}, bf16 CNN: "
-              f"{BATCH * reps / dt:.1f} clips/s ({dt / reps * 1e3:.3f} ms per batch)")
-        steps = 3
-        kernels, busy_us, wall_us = trace_device(wav_to_logits, steps)
-    print(f"phase 17: [{card}] traced {steps} steps: device busy {busy_us / steps:.1f} us/step "
-          f"of {wall_us / steps:.1f} us/step wall ({100 * busy_us / wall_us:.1f}%)")
-    for e in kernels[:10]:
-        print(f"phase 17:   {e.self_device_time_total / steps:9.1f} us/step "
-              f"{e.count // steps:3d}x  {kernel_name(e.key)}")
-    host_clip = clips[0]
-    engine.warmup_latency()
-    lat_ms = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        engine.classify_wave(host_clip)
-        lat_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"phase 17: [{card}] classify_wave at 512/128, batch 1, host clip in: median "
-          f"{np.median(lat_ms):.3f} ms, p90 {np.percentile(lat_ms, 90):.3f} ms over 50 calls")
+    for n_fft in (512, 768):
+        serving_speed(engines[n_fft], x, clips[0], card)
     print(f"phase 17: entry-point launches {launches}")
     return launches
 
@@ -2108,4 +2346,7 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        sys.exit(compare_parent(Path(sys.argv[2])))
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR]")
     sys.exit(main())
