@@ -20,6 +20,11 @@ without writing the full-resolution pre-pool activation to device memory.
   `pl.pallas_call` at `:232`) for `fused_conv_block2` / `_block3` (`:263`,
   `:279`): (B, H, W, ci) bf16 or f32 -> (B, H/2, W/2, co) bf16.
 
+What surrounds the kernels is here, where the CPU tests reach it: the tile
+schedules (`block1_schedule`, `packed_schedule`), the taps in the layout a
+`wgmma` B descriptor reads (`wgmma_tap_image`) and the TMA row-pitch check
+(`tma_row_pitch`).
+
 The wrappers take the JAX package's arguments: the HWIO `conv_kernel`
 (3, 3, ci, co) and the BatchNorm's scale, bias, running mean and variance,
 as numpy arrays or tensors; `block_args_from_state_dict` reads them from the
@@ -46,6 +51,7 @@ and count on the same wrappers.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -65,7 +71,8 @@ class FoldedConvBlock:
     weight: (co, ci, 3, 3) f32, each value a bf16, bf16(f32(k·s));
     bias: (co,) f32, bf16(f32(t)) for block 1, f32(t) for blocks 2-3;
     taps: the kernel's layout of `weight`: block 1 (9, 32) f32 [dh·3 + dw][c];
-    blocks 2-3 (co, 9·ci) bf16 [c_out][(dh·3 + dw)·ci + c_in]."""
+    blocks 2-3 (9, co, ci) bf16, `wgmma_tap_image` of the (co, 9·ci) taps
+    [c_out][(dh·3 + dw)·ci + c_in]."""
 
     weight: torch.Tensor
     bias: torch.Tensor
@@ -104,8 +111,105 @@ def fold_conv_block(conv_kernel, bn_scale, bn_bias, bn_mean, bn_var, *, eps: flo
     if ci == 1:
         taps = weight[:, 0].reshape(co, 9).T.contiguous()                 # (9, co) f32
     else:
-        taps = w.permute(3, 0, 1, 2).reshape(co, 9 * ci).contiguous()     # (co, 9·ci) bf16
+        taps = wgmma_tap_image(w.permute(3, 0, 1, 2).reshape(co, 9 * ci))  # (9, co, ci) bf16
     return FoldedConvBlock(weight.to(device), bias.to(device), taps.to(device))
+
+
+# --------------------------------------------------------- layouts and schedules
+
+def swizzle_offsets(n_bytes: int, span: int) -> np.ndarray:
+    """Physical byte offset of each logical byte offset 0..n_bytes-1 under
+    the hardware's swizzle of `span` (64 or 128) bytes: the 16-byte chunk
+    index (address bits 4..) XOR the row index (address bits 7..), modulo
+    span / 16. The region starts on a swizzle atom (8 rows)."""
+    logical = np.arange(n_bytes, dtype=np.int64)
+    mask = span // 16 - 1
+    return logical ^ (((logical >> 7) & mask) << 4)
+
+
+def wgmma_tap_image(taps: torch.Tensor) -> torch.Tensor:
+    """(co, 9·ci) bf16 taps -> (9, co, ci) bf16 in shared-memory order for
+    `csrc/fused_conv_packed.cu`: tap t's block is the K-major B operand of
+    its `wgmma`s (row n: channel n's ci values), each row one swizzle row
+    of 2·ci bytes (64 or 128: ci is 32 or 64), swizzled as `swizzle_offsets`
+    says. The kernel copies the image into shared memory byte for byte."""
+    co, k = taps.shape
+    ci = k // 9
+    logical = taps.reshape(co, 9, ci).permute(1, 0, 2).contiguous()        # (9, co, ci)
+    elems = swizzle_offsets(logical.numel() * 2, 2 * ci)[::2] // 2
+    image = torch.empty(logical.numel(), dtype=torch.bfloat16)
+    image[torch.from_numpy(elems)] = logical.flatten()
+    return image.reshape(9, co, ci)
+
+
+def tma_row_pitch(w_pitch: int, ci: int) -> int:
+    """The bytes between two rows of a (B, H, w_pitch, ci) bf16 input, the
+    tensor map's row stride; TMA takes only multiples of 16. At the channel
+    counts the kernel has instances for (32 and 64) every pitch passes; the
+    check names the cause for an instance of another channel count, where
+    the C launch would refuse with a bare error code."""
+    pitch = 2 * w_pitch * ci
+    if pitch % 16:
+        raise ValueError(f"row pitch {pitch} bytes ({w_pitch} x {ci} bf16) is not a "
+                         f"multiple of 16: TMA cannot read this input")
+    return pitch
+
+
+@dataclass(frozen=True)
+class PackedSchedule:
+    """How `csrc/fused_conv_packed.cu` cuts a block-2/3 output into tiles.
+
+    A tile is `rows` pooled rows x 4·`slots` pooled columns of one example,
+    loaded as one TMA box of (2·rows + 2) x (8·slots + 2) pixels from
+    (2·h2_0 − 1, 2·w2_0 − 1); a slot is 4 pooled windows of one pooled row
+    (one warp's 16 rows of a `wgmma` m64 tile). Tiles are numbered
+    (b, row tile, column tile), column fastest; the column tiles cover
+    out_w. A tile holds at least 8 slots (the kernel's ring needs it)."""
+
+    h2n: int
+    w2n: int
+    out_w: int
+    rows: int
+    slots: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def box(self) -> tuple[int, int]:
+        return 2 * self.rows + 2, 8 * self.slots + 2
+
+    def tiles(self, batch: int) -> int:
+        return batch * self.row_tiles * self.col_tiles
+
+
+# the widest tile row in slots a block's shared memory takes at rows = 2
+# (block 2: two CTAs an SM beside 36 KB of taps; block 3: one beside 144 KB)
+PACKED_MAX_SLOTS = {32: 10, 64: 5}
+
+
+@functools.lru_cache(maxsize=64)
+def packed_schedule(h: int, w_valid: int, out_w: int, ci: int) -> PackedSchedule:
+    """The tiles of one block-2/3 call: as few column tiles as the slot
+    limit allows, slots spread evenly over them, and the fewest rows (at
+    least 2) that give a tile 8 slots."""
+    h2n, w2n = h // 2, w_valid // 2
+    need = -(-out_w // 4)
+    col_tiles = -(-need // PACKED_MAX_SLOTS[ci])
+    slots = -(-need // col_tiles)
+    rows = max(2, -(-8 // slots))
+    return PackedSchedule(h2n, w2n, out_w, rows, slots, -(-h2n // rows), col_tiles)
+
+
+BLOCK1_MAX_UNITS = 16  # 8-column units a block-1 tile row: 128 pooled columns
+
+
+@functools.lru_cache(maxsize=64)
+def block1_schedule(out_w: int) -> tuple[int, int]:
+    """(units, col_tiles) of `csrc/fused_conv_block1.cu`: a tile is 8 pooled
+    rows x 8·units pooled columns; the column tiles cover out_w."""
+    need = -(-out_w // 8)
+    col_tiles = -(-need // BLOCK1_MAX_UNITS)
+    return -(-need // col_tiles), col_tiles
 
 
 def block_args_from_state_dict(state_dict: dict, block: int) -> tuple:
@@ -215,10 +319,11 @@ def _block1_folded(wrapper, feats: torch.Tensor, folded: FoldedConvBlock,
     b, h, w, _ = x.shape
     out_w = max(w // 2, pad_out_w or 0)
     out = torch.empty((b, h // 2, out_w, _COUT1), dtype=torch.bfloat16, device=x.device)
+    units, col_tiles = block1_schedule(out_w)
     lib = _build.load("fused_conv_block1")
     _build.launch(lib, lib.fused_conv_block1_launch, _dev_index(x), x.data_ptr(), b, h, w,
             folded.taps.data_ptr(), folded.bias.data_ptr(), out.data_ptr(), out_w,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            units, col_tiles, torch.cuda.current_stream(x.device).cuda_stream)
     wrapper.launches += 1
     return out
 
@@ -279,12 +384,14 @@ def conv_packed_folded(x: torch.Tensor, folded: FoldedConvBlock, *, true_w: int 
     _check_folded(folded, x, ci, co)
     xb = x.to(torch.bfloat16).contiguous()
     b, h, w, _ = x.shape
-    w2 = wt // 2
-    out_w = max(w2, pad_out_w or 0)
+    tma_row_pitch(w, ci)
+    out_w = max(wt // 2, pad_out_w or 0)
     out = torch.empty((b, h // 2, out_w, co), dtype=torch.bfloat16, device=x.device)
+    sched = packed_schedule(h, wt, out_w, ci)
     lib = _build.load("fused_conv_packed")
     _build.launch(lib, lib.fused_conv_packed_launch, _dev_index(x), ci, co, xb.data_ptr(), b, h, w,
             wt, folded.taps.data_ptr(), folded.bias.data_ptr(), out.data_ptr(), out_w,
+            sched.rows, sched.slots, sched.col_tiles,
             torch.cuda.current_stream(x.device).cuda_stream)
     (fused_conv_block2 if ci == 32 else fused_conv_block3).launches += 1
     return out
@@ -324,8 +431,27 @@ for _fn in (fused_conv_block1, fused_conv_block1_batched, fused_conv_block2, fus
 # ctypes signatures of the C entry points in csrc/*.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("fused_conv_block1", {
-    "fused_conv_block1_launch": [_I, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "fused_conv_block1_launch": [_I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    "fused_conv_block1_occupancy": [_I, _I, _P],
 })
 _build.declare("fused_conv_packed", {
-    "fused_conv_packed_launch": [_I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "fused_conv_packed_launch": [_I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_conv_packed_occupancy": [_I, _I, _I, _I, _I, _P],
 })
+
+
+def kernel_occupancy(x: torch.Tensor) -> dict[str, int]:
+    """CTAs an SM, registers a thread and shared bytes a CTA of the kernel
+    that a block's input `x` (on the card) launches: block 1 at one channel."""
+    _, h, w, ci = x.shape
+    out = (ctypes.c_int * 3)()
+    if ci == 1:
+        lib = _build.load("fused_conv_block1")
+        _build.launch(lib, lib.fused_conv_block1_occupancy, _dev_index(x),
+                      block1_schedule(w // 2)[0], out)
+    else:
+        sched = packed_schedule(h, w, w // 2, ci)
+        lib = _build.load("fused_conv_packed")
+        _build.launch(lib, lib.fused_conv_packed_occupancy, _dev_index(x), ci, 2 * ci,
+                      sched.rows, sched.slots, out)
+    return {"ctas_per_sm": out[0], "registers": out[1], "shared_bytes": out[2]}

@@ -43,17 +43,22 @@ toolkit. Phases:
    yardstick; the warm time of one 15 s recording; windows/s over a
    10-minute recording (2,400 windows) and a profiler split of that pass;
 14. the fused conv-block kernels (blocks 1, 1 batched, 2 and 3) against
-   their plain versions on the card, in bf16 (one bf16 ulp), at the serving
-   shapes and odd ones; `fused_kernels_available()`; the fused apply on the
-   card against itself on the CPU and against the model's cuDNN forward;
-   each kernel timed beside its bound, plain version and the port's cuDNN
-   ConvBlock as yardstick;
+   their plain versions on the card, in bf16 (one bf16 ulp, and the count
+   of outputs that differ), at the serving shapes, odd ones and block 3's
+   tile edges (w = 38-41); `fused_kernels_available()`; each source's CTAs
+   an SM and its SASS (HGMMA and UTMALDG in `fused_conv_packed`, HMMA in
+   `fused_conv_block1`); the fused apply on the card against itself on the
+   CPU and against the model's cuDNN forward; each kernel's eager time (CUDA
+   events, the kernels line's `ms`) beside its device time as a CUDA graph
+   of 20 calls (`graph_ms`), bound, plain version, the port's cuDNN
+   ConvBlock as yardstick and cuDNN's bf16 conv alone;
 15. the opt-in `ICBHI_FUSED_CNN=1` through the entry points: the serving
    engine (predict_probs, classify_wave, classify_files) and `analyze.main`
    at 0.5 s windows, the launch counts read around each run, the
    probabilities held against the same engines without the switch; wav ->
    logits clips/s and classify_wave latency with and without the switch,
-   and a profiler split of the fused step;
+   a profiler split of the fused step, and each step's device time as a
+   replayed CUDA graph beside the host clock's;
 16. TPU-kernel rows 3-6 (on the mixed-radix log-mel kernel, or the radix-8
    one at n_fft 512 and 2048), and rows 1-2 at n_fft the radix-8 kernel does not
    take (6144/512, 3072/768, 12288/1536, 16384/1024): each row against its
@@ -113,8 +118,9 @@ result. The line before the last lists the kernels as JSON; the last line is
 
     python3 chip_smoke.py --parent DIR
 
-times the mixed-radix log-mel source of an earlier checkout unpacked in DIR
-beside this one's instead (`compare_parent`), and runs no phase.
+times the fused conv-block sources and the fused wav -> logits path of an
+earlier checkout unpacked in DIR beside this one's instead
+(`compare_parent`), and runs no phase.
 """
 
 from __future__ import annotations
@@ -134,6 +140,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_classification_icbhi_tpu_torch import analyze
 from audio_classification_icbhi_tpu_torch import parity
@@ -198,6 +205,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, iters: int = 10) -> float:
+    """Device milliseconds a call of fn with the host out of the way:
+    `calls` warm calls captured into one CUDA graph, replayed `iters` times
+    back to back, timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters, warmup=2) / calls
 
 
 def log_mel_bound_ms(batch: int, length: int, nnz: int, n_fft: int = N_FFT, hop: int = HOP,
@@ -513,7 +533,7 @@ def main() -> int:
         for name, line, n_fft, numbers in rows]
         + [{"name": name, "route": "cuda", "source": csrc + source,
             "replaces": "audio_classification_icbhi_tpu/ops/pallas_conv.py" + line,
-            **{k: conv_rows[name][k] for k in serving}}
+            **{k: conv_rows[name][k] for k in (*serving, "graph_ms")}}
            for name, (source, line, _) in CONV_ROWS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1152,7 +1172,9 @@ def phase14_conv_kernels(dev, rng, card: str) -> dict[str, dict]:
              ("fused_conv_block2", rand(1, 64, 77, 32), {}), ("fused_conv_block2", rand(1, 8, 9, 32), {}),
              ("fused_conv_block2", junk, {"true_w": 10, "pad_out_w": 8}),
              ("fused_conv_block3", x3, {}), ("fused_conv_block3", rand(2, 32, 39, 64), {}),
-             ("fused_conv_block3", rand(1, 16, 20, 64), {}), ("fused_conv_block3", rand(3, 18, 19, 64), {})]
+             ("fused_conv_block3", rand(1, 16, 20, 64), {}), ("fused_conv_block3", rand(3, 18, 19, 64), {}),
+             # block 3's tile edges at the serving depth: a tile row is 20 columns
+             *(("fused_conv_block3", rand(2, 32, w, 64), {}) for w in (38, 39, 40, 41))]
     errs = {name: [] for name in CONV_ROWS}
     for name, x, kw in cases:
         blk = WRAPPER_BLOCK[name]
@@ -1170,11 +1192,22 @@ def phase14_conv_kernels(dev, rng, card: str) -> dict[str, dict]:
         err, ok = one_bf16_ulp(got, want)
         row = next(r for r, (_, _, names) in CONV_ROWS.items() if name in names)
         errs[row].append(err)
+        differ = int((got != want).sum())
         print(f"phase 14: {name} {tuple(x.shape)} {x.dtype} {kw or ''}: max|kernel - plain| = "
-              f"{err:.3e} (max |plain| {want.float().abs().max().item():.3f}; tol one bf16 ulp)")
+              f"{err:.3e} (max |plain| {want.float().abs().max().item():.3f}; tol one bf16 ulp); "
+              f"{differ} of {want.numel()} outputs differ from the plain version")
         check(ok, f"{name} within one bf16 ulp of its plain version at {tuple(x.shape)} {kw}")
     check(fused_kernels_available() is True, "fused_kernels_available()")
     print("phase 14: fused_kernels_available() passed")
+    for what, x in (("block 1", feats), ("block 2", x2), ("block 3", x3),
+                    ("block 3, analyzer", xa3)):
+        print(f"phase 14: {what} {tuple(x.shape)}: {ck.kernel_occupancy(x)}")
+    built = _build.build_all()
+    for source, opcodes in (("fused_conv_packed", ("HGMMA", "UTMALDG")),
+                            ("fused_conv_block1", ("HMMA",))):
+        counts = sass_counts(built[source][0], opcodes)
+        print(f"phase 14: {source} SASS: {counts}")
+        check(all(n > 0 for n in counts.values()), f"{source} runs on {opcodes}")
 
     # logits held relative to their largest: the fused apply ends in a bf16
     # head, so it is within a few bf16 ulps (2^-8 each) of either reference,
@@ -1197,7 +1230,9 @@ def phase14_conv_kernels(dev, rng, card: str) -> dict[str, dict]:
                   and max(err_cpu, err_model) <= rel_tol * top, f"fused apply at {what}")
 
     # timings at the serving shapes, through the folded entry points the
-    # fused apply calls; the yardstick is the port's cuDNN ConvBlock
+    # fused apply calls: the kernel's eager time by CUDA events (`ms`, as
+    # every row) and as 20 calls in a CUDA graph (`graph_ms`); the yardstick
+    # is the port's cuDNN ConvBlock
     timed = {"fused_conv_block1": (lambda: ck.conv_block1_folded(feats, folded[0]), feats, 0),
              "fused_conv_block1_batched": (
                  lambda: ck.conv_block1_batched_folded(feats, folded[0], group=8), feats, 0),
@@ -1210,18 +1245,23 @@ def phase14_conv_kernels(dev, rng, card: str) -> dict[str, dict]:
                      else (lambda: ck.conv_packed_reference(x, folded[blk])))
             block = getattr(model, f"conv{blk + 1}")
             nchw = x.permute(0, 3, 1, 2)
-            kernel_ms = cuda_ms(kernel, iters=50)
+            kernel_ms = cuda_ms(kernel, iters=50)  # eager, as every other row
+            device_ms = graph_ms(kernel)  # the host's launch cost out of the way
             plain_ms = cuda_ms(plain, iters=20)
             library_ms = cuda_ms(lambda: block(nchw), iters=50)
+            # the matrix work alone: cuDNN's bf16 conv, channels_last (x is NHWC)
+            xc = nchw.to(torch.bfloat16)
+            wc = folded[blk].weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            conv_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=50)
             bound_ms, bound_by, floors = conv_bound_ms(x, folded[blk])
-            per[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": library_ms}
-            print(f"phase 14: [{card}] {name} {tuple(x.shape)} {x.dtype}: kernel {kernel_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, cuDNN ConvBlock yardstick {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; bytes {floors['bytes']:.4f}, operations "
-                  f"{floors['operations']:.4f})")
+            per[name] = {"ms": kernel_ms, "graph_ms": device_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            print(f"phase 14: [{card}] {name} {tuple(x.shape)} {x.dtype}: kernel {kernel_ms:.4f} ms "
+                  f"(eager; {device_ms:.4f} as a CUDA graph), plain {plain_ms:.4f} ms, cuDNN ConvBlock yardstick {library_ms:.4f} ms, cuDNN "
+                  f"bf16 conv alone (channels_last) {conv_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; bytes {floors['bytes']:.4f}, operations {floors['operations']:.4f})")
     packed = {k: per["fused_conv_block2"][k] + per["fused_conv_block3"][k]
-              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+              for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")}
     rows = {"fused_conv_block1": per["fused_conv_block1"],
             "fused_conv_block1_batched": per["fused_conv_block1_batched"],
             "fused_conv_packed": {**packed, "bound_by": "operations"}}
@@ -1332,6 +1372,7 @@ def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[s
     def step(apply):
         return apply(features_from_wavs(engine.frontend, x))
 
+    host_ms = {"cuDNN": [], "fused": []}
     with torch.inference_mode():
         for name in ("cuDNN", "fused", "fused", "cuDNN"):
             for _ in range(3):
@@ -1344,6 +1385,7 @@ def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[s
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             check(bool(torch.isfinite(logits).all()), "finite logits")
+            host_ms[name].append(dt / reps * 1e3)
             print(f"phase 15: [{card}] wav->logits batch {BATCH}, {name} CNN: "
                   f"{BATCH * reps / dt:.1f} clips/s ({dt / reps * 1e3:.3f} ms per batch)")
     host_clip = clips[0]
@@ -1369,6 +1411,19 @@ def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[s
             for e in kernels[:14]:
                 print(f"phase 15:   {e.self_device_time_total / steps:9.1f} us/step "
                       f"{e.count // steps:3d}x  {kernel_name(e.key)}")
+    # the device's time a batch with the host out of the way (the profiler
+    # drops kernel records on this card): one step captured as a CUDA graph
+    # and replayed, by CUDA events, beside the host clock's time a batch
+    with torch.inference_mode():
+        for name in ("fused", "cuDNN"):
+            device_ms = graph_ms(lambda: step(applies[name]), calls=1, iters=20)
+            nodes, _ = graph_nodes(lambda: step(applies[name]))
+            wall = float(np.mean(host_ms[name]))
+            print(f"phase 15: [{card}] {name} wav->logits batch {BATCH}: device {device_ms:.4f} "
+                  f"ms a batch (a CUDA graph of one step, "
+                  f"{sum(kind == 'kernel' for kind, _ in nodes)} kernel nodes) against "
+                  f"{wall:.4f} ms a batch by the host clock: device busy "
+                  f"{100 * device_ms / wall:.1f}%")
     return {k: serve[k] + ana[k] for k in CONV_WRAPPERS}
 
 
@@ -1766,87 +1821,94 @@ def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
     check(torch.equal(graph_out, eager), "the captured call replays the eager one")
 
 
-# `--parent`: the mixed-radix source's shapes timed beside an earlier
-# checkout's, MIXED_DESIGN_SHAPES and rows 1-2's (batch, n_fft, hop) on it
-PARENT_SHAPES = MIXED_DESIGN_SHAPES + ((BATCH, 3072, 768), (BATCH, 6144, 512),
-                                       (BATCH, 12288, 1536), (BATCH, 16384, 1024))
-# run in a subprocess whose cwd is a checkout: loads this file, which then
-# imports that checkout's package
+# `--parent`: run in a subprocess whose cwd is a checkout: loads this file,
+# which then imports that checkout's package
 PARENT_TIMER = """
 import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 spec = importlib.util.spec_from_file_location("smoke_timer", sys.argv[2])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
-print(json.dumps(smoke.front_end_times()))
+print(json.dumps(smoke.conv_times()))
 """
 
 
-def front_end_times() -> dict:
-    """The mixed-radix source's numbers in whichever checkout's package is
-    imported, through functions that checkout and this one share: at each
-    PARENT_SHAPES shape (seeded clips of 5 s) the dB form of the whole call
-    (`mel_kernels.run_source`) against the plain version in float64 (tol
-    1e-3 dB, unrestricted at n_fft >= 1536 and within 25 dB of each clip's
-    peak below, as PERF.md section 2 gates it; the mean and 99.99th
-    percentile over all cells are printed too), then the call with normalize
-    on timed by CUDA events; then wav -> logits clips/s
-    at 768/256 through a seeded serving checkpoint's engine (bf16 CNN, host
-    clock around 10 synchronized batches, twice)."""
+def conv_times() -> dict:
+    """The fused conv-block sources' numbers in whichever checkout's package
+    is imported, through functions that checkout and this one share
+    (`fold_conv_block`, `conv_block1_folded`, `conv_packed_folded`,
+    `make_fused_apply`): each block at the serving shapes (block 1 on the
+    log-mel of 128 clips of 5 s at 2048/512, blocks 2 and 3 on the plain
+    outputs of the blocks before) and the analyzer's (64 windows of 0.5 s),
+    held to its plain version within one bf16 ulp and timed by CUDA events;
+    then fused wav -> logits at 2048/512 through a seeded serving
+    checkpoint's engine with ICBHI_FUSED_CNN=1: clips/s by the host clock
+    around 20 synchronized batches, five times, and the device's time a
+    batch as a replayed CUDA graph of one step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.default_rng(9)
-    kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None, eps=1e-8,
-              spec_mask_bounds=None)
-    out = {"calls": {}}
-    for b, n_fft, hop in PARENT_SHAPES:
-        x = torch.from_numpy(synth_clips(rng, b)).to(dev)
-
-        def call(normalize=True):
-            return mel_kernels.run_source("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS,
-                                          normalize=normalize, **kw)
-
-        want = mel_kernels.log_mel_fused_reference(x.double(), SR, n_fft, hop, N_MELS)
-        diff = (call(normalize=False).double() - want).abs()
-        errs = (diff.max().item(),
-                diff[want >= want.amax(dim=(1, 2), keepdim=True) - 25.0].max().item(),
-                diff.mean().item(), torch.quantile(diff.flatten().float(), 0.9999).item())
-        del want, diff
-        check(errs[0 if n_fft >= 1536 else 1] <= 1e-3,
-              f"the mixed-radix source vs plain at {n_fft}/{hop}: {errs}")
-        out["calls"][f"{n_fft}/{hop}"] = {"batch": b, "max_abs_err": errs,
-                                          "ms": cuda_ms(call, 20 if n_fft == 4036 else 50)}
-        del x
+    rng = np.random.default_rng(10)
+    model = seeded_cnn(14).to(dev)
+    sd = model.state_dict()
+    folded = [ck.fold_conv_block(*ck.block_args_from_state_dict(sd, i), bias_bf16=i == 0,
+                                 device=dev) for i in range(3)]
     x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+    xa = torch.from_numpy(rng.standard_normal((64, N_MELS, 32, 1)).astype(np.float32)).to(dev)
+    out = {"calls": {}}
+    with torch.inference_mode():
+        feats = features_from_wavs(MelFrontend.from_config(load_config()), x)
+        for where, f1 in (("serving", feats), ("analyzer", xa)):
+            f2 = ck.conv_block1_reference(f1, folded[0])
+            f3 = ck.conv_packed_reference(f2, folded[1])
+            for blk, inp in enumerate((f1, f2, f3)):
+                def call(blk=blk, inp=inp):
+                    return (ck.conv_block1_folded(inp, folded[0]) if blk == 0
+                            else ck.conv_packed_folded(inp, folded[blk]))
+                want = (ck.conv_block1_reference(inp, folded[0]) if blk == 0
+                        else ck.conv_packed_reference(inp, folded[blk]))
+                err, ok = one_bf16_ulp(call(), want)
+                check(ok, f"block {blk + 1} at {tuple(inp.shape)} within one bf16 ulp ({err:.3e})")
+                out["calls"][f"block {blk + 1} {where} {tuple(inp.shape)}"] = {
+                    "max_abs_err": err, "ms": cuda_ms(call, 100, warmup=5),
+                    "graph_ms": graph_ms(call)}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = seeded_checkpoint(Path(tmp) / "serve.ckpt", mixed_precision=True,
-                                 head_scale=15.0, n_fft=768, hop_length=256)
-        engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+        ckpt = seeded_checkpoint(Path(tmp) / "serve.ckpt", mixed_precision=True, head_scale=15.0)
+        os.environ["ICBHI_FUSED_CNN"] = "1"
+        try:
+            engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+            apply = engine._apply_fn  # the switch is read here, once
+        finally:
+            os.environ.pop("ICBHI_FUSED_CNN", None)
+    check(apply is not engine.model, "the engine took the fused apply")
     rates = []
     with torch.inference_mode():
+        def step():
+            return apply(features_from_wavs(engine.frontend, x))
+
         for _ in range(3):
-            engine.model(features_from_wavs(engine.frontend, x))
-        for _ in range(2):
+            step()
+        for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(10):
-                logits = engine.model(features_from_wavs(engine.frontend, x))
+            for _ in range(20):
+                logits = step()
             torch.cuda.synchronize()
-            rates.append(BATCH * 10 / (time.perf_counter() - t0))
-    check(bool(torch.isfinite(logits).all()), "finite logits at 768/256")
-    out["wav_to_logits_768"] = {"clips_per_s": rates,
-                                "logit_sum": logits.float().sum().item()}
+            rates.append(BATCH * 20 / (time.perf_counter() - t0))
+        device_ms = graph_ms(step, calls=1, iters=20)
+    check(bool(torch.isfinite(logits).all()), "finite fused logits")
+    out["fused_wav_to_logits"] = {"clips_per_s": rates, "device_ms": device_ms,
+                                  "logit_sum": logits.float().sum().item()}
     return out
 
 
 def compare_parent(parent: Path) -> int:
     """`python3 chip_smoke.py --parent DIR`, DIR an unpacked earlier
-    checkout (`git archive <commit> | tar -x -C DIR`): `front_end_times` in
-    that checkout's package and in this one, each in its own process, in
-    turns (parent, this, this, parent); prints each shape's whole-call ms
-    and the wav -> logits clips/s side by side, the card's name and power
-    limit first. Exits non-zero on any failed check."""
+    checkout (`git archive <commit> | tar -x -C DIR`): `conv_times` in that
+    checkout's package and in this one, each in its own process, in turns
+    (parent, this, this, parent); prints each conv call's ms and the fused
+    wav -> logits clips/s side by side, the card's name and power limit
+    first. Exits non-zero on any failed check."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1863,21 +1925,25 @@ def compare_parent(parent: Path) -> int:
         check(proc.returncode == 0, f"{which} ({root}):\n{proc.stdout[-4000:]}\n"
                                     f"{proc.stderr[-4000:]}")
         runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for shape in runs["this"][0]["calls"]:
-        got = {w: [r["calls"][shape] for r in rs] for w, rs in runs.items()}
-        print(f"--parent: [{card}] log_mel_mixed_radix {shape} B={got['this'][0]['batch']} x 5 s, "
-              f"whole call: this " + " / ".join(f"{c['ms']:.4f}" for c in got["this"])
-              + " ms, parent " + " / ".join(f"{c['ms']:.4f}" for c in got["parent"])
-              + " ms; dB |- plain f64| max over all cells / within 25 dB of the peak, mean, "
-              + "99.99th percentile: this {:.3e} / {:.3e}, {:.3e}, {:.3e}; parent {:.3e} / "
-              "{:.3e}, {:.3e}, {:.3e}".format(*got["this"][0]["max_abs_err"],
-                                              *got["parent"][0]["max_abs_err"]))
-    serve = {w: [r["wav_to_logits_768"] for r in rs] for w, rs in runs.items()}
-    print(f"--parent: [{card}] wav->logits at 768/256, batch {BATCH}, bf16 CNN: this "
+    for call in runs["this"][0]["calls"]:
+        got = {w: [r["calls"][call] for r in rs] for w, rs in runs.items()}
+        print(f"--parent: [{card}] {call}: eager ms a call (CUDA events) this "
+              + " / ".join(f"{c['ms']:.4f}" for c in got["this"]) + ", parent "
+              + " / ".join(f"{c['ms']:.4f}" for c in got["parent"])
+              + "; device ms a call (CUDA graph) this "
+              + " / ".join(f"{c['graph_ms']:.4f}" for c in got["this"]) + ", parent "
+              + " / ".join(f"{c['graph_ms']:.4f}" for c in got["parent"])
+              + f"; max|kernel - plain| this {got['this'][0]['max_abs_err']:.3e}, parent "
+              f"{got['parent'][0]['max_abs_err']:.3e} (tol one bf16 ulp)")
+    serve = {w: [r["fused_wav_to_logits"] for r in rs] for w, rs in runs.items()}
+    print(f"--parent: [{card}] fused wav->logits at 2048/512, batch {BATCH}: this "
           + " / ".join(f"{v:.1f}" for s in serve["this"] for v in s["clips_per_s"])
           + " clips/s, parent "
           + " / ".join(f"{v:.1f}" for s in serve["parent"] for v in s["clips_per_s"])
-          + f" clips/s; logit sums {serve['this'][0]['logit_sum']:.4f} / "
+          + " clips/s (host clock, 20 batches each); device ms a batch (CUDA graph) this "
+          + " / ".join(f"{s['device_ms']:.4f}" for s in serve["this"]) + ", parent "
+          + " / ".join(f"{s['device_ms']:.4f}" for s in serve["parent"])
+          + f"; logit sums {serve['this'][0]['logit_sum']:.4f} / "
           f"{serve['parent'][0]['logit_sum']:.4f}")
     return 0
 

@@ -187,7 +187,7 @@ def test_weights_from_state_dict(variables):
     b = ck.fold_conv_block(*block_args(variables, 2), bias_bf16=False)
     for x, y in ((a.weight, b.weight), (a.bias, b.bias), (a.taps, b.taps)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert a.taps.shape == (128, 9 * 64) and a.taps.dtype == torch.bfloat16
+    assert a.taps.shape == (9, 128, 64) and a.taps.dtype == torch.bfloat16
     f1 = ck.fold_conv_block(*block_args(variables, 0), bias_bf16=True)
     assert f1.taps.shape == (9, 32) and f1.taps.dtype == torch.float32
     # block 1's bias rides a bf16 row on the TPU; blocks 2-3 keep it in f32
