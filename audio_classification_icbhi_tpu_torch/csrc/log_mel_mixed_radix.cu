@@ -77,12 +77,42 @@
 //     odd factor's W_m^j and the mel bands are read by __ldg, built in
 //     float64 on the host (`_twiddles_mixed_radix` in ops/mel_kernels.py).
 // - Block path (every other n_fft: a prime factor of m above 7, such as
-//   4036 = 4 * 1009; m with no warp instance; 12,288 and 16,384, whose pair
-//   a warp's slice cannot hold): the previous design, one block a frame
-//   pair, a radix-2 DIT in shared memory and the direct per-bin combine,
-//   now reading the unpadded waveform through the same reflection. Its
-//   shared memory a block, 12 * n_fft + 8 bytes, sets the one n_fft limit
-//   of every log-mel route (`MIXED_RADIX_MAX_N_FFT` = 16,384, 196,616 bytes).
+//   4036 = 4 * 1009 and 1100 = 4 * 5^2 * 11; m with no warp instance, such
+//   as 1200 = 16 * 75; 12,288 and 16,384, whose pair a warp's slice cannot
+//   hold): one block a frame pair, the pair in shared memory in natural
+//   order, so row r is its stride-m subsequence, each complex value at a
+//   XOR-swizzled slot within its group of 16 (`swz`: the power-of-two
+//   strides of the passes and of the digit-reversed bins fall on distinct
+//   banks; the previous design's direct combine and radix-2 stages had
+//   neither). The plan (`block_plan`, mirrored by `mel_kernels.block_plan`)
+//   takes about 16 complex values a thread, up to 1024 threads.
+//   - Step 1: radix-8 passes (radix 2 or 4 at the smallest span) by
+//     decimation in frequency, in place: a thread reads its butterfly's 8
+//     values into registers, runs the 8-point DFT and the twiddles W_S^{s q}
+//     (W_S^s by sincospif, its powers by products), and writes them back: a
+//     barrier a pass where the previous design had one a radix-2 stage.
+//     Bin k0 ends at its digit-reversed position; the last pass multiplies
+//     by step 2's W_N^{r k0} as it writes.
+//   - Step 3 for m of 3, 5 and 7: staged passes down each column over m's
+//     prime factors, the smallest first, by the warp path's butterfly<R>
+//     (m = 75: 3, 5, 5; about 12 complex products a bin where the direct
+//     combine took 74).
+//   - Step 3 for m with a prime factor above 7: Bluestein over the whole odd
+//     factor, X_q = w_q sum_r (x_r w_r) conj(w_{q - r}), w_n = exp(-i pi
+//     (n^2 mod 2m) / m): the chirped columns into a workspace of M (the
+//     power of two >= 2m - 1) each, the forward passes, times DFT_M of the
+//     conjugate chirp over M (built on the host in float64 and stored in
+//     the forward passes' order), the same passes undone, times the chirp
+//     (4036: two 2048-point FFTs a column where the direct combine made
+//     1,009 products a bin). All P columns a round where the workspace
+//     fits (one at 16,380, M = 8192).
+//   - The unpacking and the mel pass find bin k at `bin_slot[k]` (host
+//     table); a group of up to 32 lanes sums each band, a shuffle tree
+//     adds them: a fixed order, two calls equal bits.
+//   - Its shared memory a block, 8 (N + the workspace) bytes rounded to 16
+//     values, sets the one n_fft limit of every log-mel route
+//     (`MIXED_RADIX_MAX_N_FFT` = 16,384, 131,072 bytes; the most, 196,608,
+//     at 16,380).
 // - Everything stays f32.
 //
 // `log_mel_mixed_radix_occupancy` reports each n_fft's path, warps a block,
@@ -95,16 +125,19 @@
 // section 6): the spectrum kernel alone 0.138 ms at 768/256, 0.145 at
 // 800/200, 0.21 at 1536/384, 0.125 at 400/160, 0.25 at 1280/256; a row-5
 // call 0.19 ms (0.40 before, with the gather), row 6 0.21 (0.86), row 3 at
-// 1536/384 0.25 (0.53). The block path's calls take the time they took
-// with the gather: the gather's time is now inside the kernel, which
-// reflects its edge pairs. What bounds the warp path now is instructions
-// and their latency, not bytes (7x the 0.018 ms bytes bound at 768/256):
-// five cross-lane stages a value (two shuffles, two FMAs and a complex
-// product each) are about 40 % of a pair's instructions by a count of the
-// code, and the mel pass's bit-reversed positions another 10 %. The
-// register caps (kMinBlocks) and kRegValues were chosen by timing builds
-// with other values; as m = 1 instances, n_fft 512 and 1024 ran 7-28 %
-// slower than log_mel_radix8dif.cu, so the route keeps those n_fft there.
+// 1536/384 0.25 (0.53). What bounds the warp path now is instructions and
+// their latency, not bytes (7x the 0.018 ms bytes bound at 768/256): five
+// cross-lane stages a value (two shuffles, two FMAs and a complex product
+// each) are about 40 % of a pair's instructions by a count of the code, and
+// the mel pass's bit-reversed positions another 10 %. The register caps
+// (kMinBlocks) and kRegValues were chosen by timing builds with other
+// values; as m = 1 instances, n_fft 512 and 1024 ran 7-28 % slower than
+// log_mel_radix8dif.cu, so the route keeps those n_fft there. The block
+// path's whole call: 0.36 ms at 1200/300 (1.94 before), 0.80 at 4036/1009
+// (26.4), 0.80 at 12,288 (1.6), 1.15 at 16,384 (3.3), 1.27 at 1100 and 1.11
+// at 16,380; what bounds it is instructions a butterfly and barriers a pass
+// (16,384: the five row passes ~0.6 ms, the mel pass ~0.25, the staging,
+// which reads each sample 16 times from L2, ~0.19).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -476,123 +509,361 @@ log_mel_mixed_radix_warp_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Block path: one block a frame pair, the previous design
+// Block path: one block a frame pair, staged radix passes in shared memory
 
-constexpr int kMaxBlockThreads = 512;
+constexpr int kMaxBlockThreads = 1024;
 
-// Threads a block: about four samples a thread, a whole number of warps.
-inline int block_threads(int n_fft) {
-  const int t = (n_fft / 4 + 31) / 32 * 32;
-  return t < 64 ? 64 : (t > kMaxBlockThreads ? kMaxBlockThreads : t);
+// The pair sits in shared memory with each complex value a of a group of 16
+// at a ^ h(a), h the XOR of the higher groups of four index bits: the
+// power-of-two strides of the radix passes and of the digit-reversed bins
+// fall on distinct banks. A permutation within each aligned group of 16, so
+// a buffer takes its length rounded up to 16.
+__host__ __device__ __forceinline__ int swz(int a) {
+  return a ^ (((a >> 4) ^ (a >> 8) ^ (a >> 12)) & 15);
+}
+__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
+
+// The block path's plan of n_fft = P * m (`mel_kernels.block_plan` mirrors
+// it): Bluestein's length M (a power of two >= 2m - 1) where m has a prime
+// factor above 7, else 0; the Bluestein columns transformed a round (all P
+// where the workspace fits); threads a block (about 16 complex values a
+// thread of the larger of the pair and a round's workspace); lanes a mel
+// band; dynamic shared bytes (the pair, then the Bluestein workspace, each
+// rounded up to 16 complex values).
+struct BlockPlan {
+  int n, p, log2_p, m, bluestein, columns, threads, mel_lanes;
+  size_t smem;
+};
+
+inline BlockPlan block_plan(int n_fft, size_t smem_optin) {
+  BlockPlan b{};
+  b.n = n_fft;
+  b.p = n_fft & -n_fft;
+  b.log2_p = ilog2(b.p);
+  b.m = n_fft / b.p;
+  int rest = b.m;
+  for (int f = 3; f <= 7; f += 2)
+    while (rest % f == 0) rest /= f;
+  if (rest > 1) {
+    b.bluestein = 1;
+    while (b.bluestein < 2 * b.m - 1) b.bluestein <<= 1;
+  }
+  auto bytes = [&](int cols) {
+    return 8 * ((size_t)round16(n_fft) + (b.bluestein ? (size_t)round16(cols * b.bluestein) : 0));
+  };
+  b.columns = 1;
+  if (b.bluestein) {
+    b.columns = b.p;
+    while (b.columns > 1 && bytes(b.columns) > smem_optin) b.columns /= 2;
+  }
+  b.smem = bytes(b.columns);
+  const int work = n_fft > b.columns * b.bluestein ? n_fft : b.columns * b.bluestein;
+  const int t = (work / 16 + 31) / 32 * 32;
+  b.threads = t < 64 ? 64 : (t > kMaxBlockThreads ? kMaxBlockThreads : t);
+  b.mel_lanes = 1;
+  while (b.mel_lanes < 32 && 512 * b.mel_lanes <= n_fft) b.mel_lanes *= 2;
+  return b;
 }
 
-// Shared memory a block, in bytes: N float2, then 2 (N/2 + 1) floats.
-inline size_t block_smem_bytes(int n_fft) {
-  return 8 * (size_t)n_fft + 8 * (size_t)(n_fft / 2 + 1);
+// u / d for 0 <= u < 2^24 by the float reciprocal, corrected by one step.
+struct FastDiv {
+  int d;
+  float inv;
+  __device__ __forceinline__ explicit FastDiv(int d_) : d(d_), inv(1.0f / (float)d_) {}
+  __device__ __forceinline__ int div(int u) const {
+    int q = __float2int_rz(__int2float_rn(u) * inv);
+    const int r = u - q * d;
+    if (r < 0) --q;
+    else if (r >= d) ++q;
+    return q;
+  }
+};
+
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 w) {
+  return make_float2(a.x * w.x + a.y * w.y, a.y * w.x - a.x * w.y);
 }
 
-// The block's windowed load of its frame pair: sample i = r + m n to row r
-// at bit-reversed n. kEdge: a frame reaches into the padding.
+// exp(-2 pi i u / d), 0 <= u < d, by sincospif: the argument 2u/d is exact
+// for a power-of-two d and within an ulp otherwise, the result within an ulp
+__device__ __forceinline__ float2 root(int u, int d) {
+  float s, c;
+  sincospif(-2.0f * (float)u / (float)d, &s, &c);
+  return make_float2(c, s);
+}
+
+// a times -i (forward) or +i (inverse)
+template <bool kInv>
+__device__ __forceinline__ float2 mul_i(float2 a) {
+  return kInv ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+
+// In-place R-point DFT, natural order in and out, by exp(-2 pi i / R)
+// (forward) or exp(+2 pi i / R) (inverse, unscaled); R = 3, 5, 7 forward only.
+template <int R, bool kInv>
+__device__ __forceinline__ void small_dft(float2 (&x)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = x[0];
+    x[0] = cadd(a, x[1]);
+    x[1] = csub(a, x[1]);
+  } else if constexpr (R == 4) {
+    const float2 s02 = cadd(x[0], x[2]), d02 = csub(x[0], x[2]);
+    const float2 s13 = cadd(x[1], x[3]), d13 = mul_i<kInv>(csub(x[1], x[3]));
+    x[0] = cadd(s02, s13);
+    x[2] = csub(s02, s13);
+    x[1] = cadd(d02, d13);
+    x[3] = csub(d02, d13);
+  } else if constexpr (R == 8) {
+    float2 e[4] = {x[0], x[2], x[4], x[6]}, o[4] = {x[1], x[3], x[5], x[7]};
+    small_dft<4, kInv>(e);
+    small_dft<4, kInv>(o);
+    constexpr float h = 0.70710678118654752f;
+    // W_8^k o[k], k = 1, 2, 3
+    o[1] = kInv ? make_float2(h * (o[1].x - o[1].y), h * (o[1].x + o[1].y))
+                : make_float2(h * (o[1].x + o[1].y), h * (o[1].y - o[1].x));
+    o[2] = mul_i<kInv>(o[2]);
+    o[3] = kInv ? make_float2(-h * (o[3].x + o[3].y), h * (o[3].x - o[3].y))
+                : make_float2(h * (o[3].y - o[3].x), -h * (o[3].x + o[3].y));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[k] = cadd(e[k], o[k]);
+      x[k + 4] = csub(e[k], o[k]);
+    }
+  } else {
+    static_assert(!kInv, "the odd radices run forward only");
+    butterfly<R>(x);
+  }
+}
+
+// A batch of equal-length transforms in shared memory: element e of
+// transform j at buf[swz(j * bstride + e * estride)].
+struct Batch {
+  float2* buf;
+  int len, count, bstride, estride;
+};
+
+// One radix-R pass over every transform of the batch at span S: the block of
+// S elements from blk * S holds R sub-sequences, element s + t * (S / R) of
+// the block the t-th of butterfly s. Forward (decimation in frequency): the
+// R-point DFT, then output q times W_S^{s q}, in place. Inverse: the forward
+// pass undone (times conj W_S^{s t}, then the inverse R-point DFT), unscaled.
+// W_S^s comes from sincospif, its powers by products. `pre` (inverse): each
+// element e times pre[e] as it is read. `post_bin` (forward): element e of
+// transform j times W_N^{j post_bin[e]} as it is written (N = `post_n`). A
+// butterfly an item; items go to threads transform-fastest where the
+// transforms are adjacent words.
+template <int R, bool kInv>
+__device__ __forceinline__ void radix_pass(const Batch& a, int span,
+                                           const float2* __restrict__ pre,
+                                           const int* __restrict__ post_bin, int post_n) {
+  const int sub = span / R, per = a.len / R, items = a.count * per;
+  const bool count_fastest = a.bstride == 1 && a.count >= 16;
+  // powers of two divide by shifts; the odd lengths by FastDiv
+  constexpr bool kPow2 = (R & (R - 1)) == 0;
+  const int log2_per = kPow2 ? __ffs(per) - 1 : 0, log2_sub = kPow2 ? __ffs(sub) - 1 : 0;
+  const FastDiv by_count(a.count), by_per(per), by_sub(sub);
+  for (int u = threadIdx.x; u < items; u += blockDim.x) {
+    int j, jj;
+    if (count_fastest) {
+      jj = by_count.div(u);
+      j = u - jj * a.count;
+    } else {
+      j = kPow2 ? u >> log2_per : by_per.div(u);
+      jj = u - j * per;
+    }
+    const int blk = kPow2 ? jj >> log2_sub : by_sub.div(jj), s = jj - blk * sub;
+    const int e0 = blk * span + s, base = j * a.bstride;
+    float2 v[R];
+    int at[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      at[t] = swz(base + (e0 + t * sub) * a.estride);
+      v[t] = a.buf[at[t]];
+      if (pre) v[t] = cmul(v[t], __ldg(pre + e0 + t * sub));
+    }
+    // W_S^{s q}, q = 1 .. R - 1
+    float2 w[R];
+    if (s) {
+      w[1] = root(s, span);
+#pragma unroll
+      for (int q = 2; q < R; ++q) w[q] = cmul(w[q / 2], w[q - q / 2]);
+    }
+    if constexpr (kInv) {
+      if (s) {
+#pragma unroll
+        for (int t = 1; t < R; ++t) v[t] = cmul_conj(v[t], w[t]);
+      }
+      small_dft<R, true>(v);
+    } else {
+      small_dft<R, false>(v);
+      if (s) {
+#pragma unroll
+        for (int q = 1; q < R; ++q) v[q] = cmul(v[q], w[q]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      float2 o = v[t];
+      if (post_bin && j) o = cmul(o, root(j * __ldg(post_bin + e0 + t * sub), post_n));
+      a.buf[at[t]] = o;
+    }
+  }
+}
+
+// The passes of a power-of-two length: radix 8 while the span holds 8, the
+// rest (radix 2 or 4) at the smallest span. Forward from the whole length
+// down, each output left at its digit-reversed position
+// (`mel_kernels.digit_positions`); inverse the same passes undone from the
+// smallest span up, which returns natural order. `pre` applies to the
+// inverse's first pass, `post_bin` to the forward's last. A block barrier
+// after each pass.
+template <bool kInv>
+__device__ void pow2_passes(const Batch& a, const float2* __restrict__ pre,
+                            const int* __restrict__ post_bin, int post_n) {
+  const int bits = __ffs(a.len) - 1;
+  if (bits == 0) return;
+  const int first = kInv ? (bits % 3 ? bits % 3 : 3) : bits;
+  for (int s = first; kInv ? s <= bits : s > 0;) {
+    const int r = s >= 3 ? 3 : s;
+    const float2* p = kInv && s == first ? pre : nullptr;
+    const int* pb = !kInv && s == r ? post_bin : nullptr;
+    if (r == 3) radix_pass<8, kInv>(a, 1 << s, p, pb, post_n);
+    else if (r == 2) radix_pass<4, kInv>(a, 1 << s, p, pb, post_n);
+    else radix_pass<2, kInv>(a, 1 << s, p, pb, post_n);
+    __syncthreads();
+    s += kInv ? 3 : -r;
+  }
+}
+
+// The forward passes of an odd length whose prime factors are 3, 5 and 7,
+// the smallest first; output q at its digit-reversed position.
+__device__ void odd_passes(const Batch& a) {
+  for (int span = a.len; span > 1;) {
+    const int r = smallest_factor(span);
+    if (r == 3) radix_pass<3, false>(a, span, nullptr, nullptr, 0);
+    else if (r == 5) radix_pass<5, false>(a, span, nullptr, nullptr, 0);
+    else radix_pass<7, false>(a, span, nullptr, nullptr, 0);
+    __syncthreads();
+    span /= r;
+  }
+}
+
+// The windowed frame pair, sample i at y[swz(i)]: row r of the four-step
+// form (elements r + m n) is then the stride-m subsequence of the slice.
+// kEdge: a frame reaches into the padding.
 template <bool kEdge>
-__device__ __forceinline__ void block_load(float2* y, const float* __restrict__ wave, int start,
-                                           int hop, int length, bool pair, int n_fft, int p,
-                                           int log2_p, int m, const float* __restrict__ window) {
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x) {
-    const int n = i / m, r = i - n * m;
-    const int rev = log2_p ? (int)(__brev((unsigned)n) >> (32 - log2_p)) : 0;
+__device__ __forceinline__ void block_stage(float2* y, const float* __restrict__ wave, int start,
+                                            int hop, int length, bool pair, int n,
+                                            const float* __restrict__ window) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float w = __ldg(window + i);
     const int oa = start + i, ob = oa + hop;
     const float a = __ldg(wave + (kEdge ? reflect_index(oa, length) : oa));
     const float b = pair ? __ldg(wave + (kEdge ? reflect_index(ob, length) : ob)) : 0.0f;
-    y[r * p + rev] = make_float2(a * w, b * w);
+    y[swz(i)] = make_float2(a * w, b * w);
   }
 }
 
 __global__ void __launch_bounds__(kMaxBlockThreads) log_mel_mixed_radix_block_kernel(
     const float* __restrict__ x,            // (B, length), unpadded
-    int length, int n_fft, int p, int log2_p, int m, int hop, int n_frames,
-    int pairs_per_example,
+    int length, int hop, int n_frames, int pairs_per_example, BlockPlan plan,
     const float* __restrict__ window,       // (N)
-    const float2* __restrict__ twiddle,     // (N): W_N^j = exp(-2 pi i j / N)
-    const int* __restrict__ mel_start,
-    const int* __restrict__ mel_offset,
-    const float* __restrict__ mel_weight,
-    int n_mels,
+    const int* __restrict__ col_bin,        // (P): the row bin at each position of a row
+    const int* __restrict__ bin_slot,       // (N): where Z[k] ends, swizzled
+    const float2* __restrict__ chirp,       // (m) or null: w_n = exp(-i pi (n^2 mod 2m) / m)
+    const float2* __restrict__ chirp_hat,   // (M) or null: DFT_M(conj chirp) / M, forward order
+    const int* __restrict__ mel_start, const int* __restrict__ mel_offset,
+    const float* __restrict__ mel_weight, int n_mels,
     float* __restrict__ db) {               // (B, n_frames, n_mels)
   extern __shared__ float4 smem_f4[];
-  float2* y = reinterpret_cast<float2*>(smem_f4);  // row r = Y_r, P values each
-  const int n_bins = n_fft / 2 + 1;
-  float* pw = reinterpret_cast<float*>(y + n_fft);  // power of frame t0, then t0 + 1
-  const int tid = threadIdx.x;
+  const int n = plan.n, p = plan.p, m = plan.m, big_m = plan.bluestein;
+  float2* y = reinterpret_cast<float2*>(smem_f4);  // the pair, then Z, then the power
+  float2* ws = y + round16(n);                     // Bluestein's workspace
+  const int tid = threadIdx.x, threads = blockDim.x;
 
   const int b = blockIdx.x / pairs_per_example;
   const int t0 = 2 * (blockIdx.x - b * pairs_per_example);
   const bool pair = t0 + 1 < n_frames;
   const float* wave = x + (size_t)b * length;
-  const int start = t0 * hop - n_fft / 2;
+  const int start = t0 * hop - n / 2;
   const size_t f0 = (size_t)b * n_frames + t0;  // row of frame t0 in the dB scratch
-
-  // Windowed load: sample i = r + m n goes to row r at bit-reversed n.
-  if (start < 0 || start + hop + n_fft > length)
-    block_load<true>(y, wave, start, hop, length, pair, n_fft, p, log2_p, m, window);
+  if (start < 0 || start + hop + n > length)
+    block_stage<true>(y, wave, start, hop, length, pair, n, window);
   else
-    block_load<false>(y, wave, start, hop, length, pair, n_fft, p, log2_p, m, window);
+    block_stage<false>(y, wave, start, hop, length, pair, n, window);
   __syncthreads();
 
-  // Radix-2 DIT stages over the m rows at once: butterfly j of a stage is
-  // (row, jj) with jj < P/2; its twiddle is W_{2 half}^pos = W_N^{pos N / 2 half}.
-  const int half_p = p >> 1;
-  const int butterflies = m * half_p;
-  for (int half = 1, stride = n_fft >> 1; half < p; half <<= 1, stride >>= 1) {
-    for (int j = tid; j < butterflies; j += blockDim.x) {
-      const int row = j >> (log2_p - 1);
-      const int jj = j - row * half_p;
-      const int pos = jj & (half - 1);
-      const int i0 = row * p + ((jj - pos) << 1) + pos;
-      const int i1 = i0 + half;
-      const float2 t = cmul(__ldg(twiddle + pos * stride), y[i1]);
-      const float2 a = y[i0];
-      y[i0] = make_float2(a.x + t.x, a.y + t.y);
-      y[i1] = make_float2(a.x - t.x, a.y - t.y);
+  // (1) The P-point FFTs of the m rows (row r: elements r + m n), the last
+  // pass times (2) the twiddle W_N^{r k0} as it writes bin k0 of row r.
+  pow2_passes<false>(Batch{y, p, m, 1, m}, nullptr, m > 1 ? col_bin : nullptr, n);
+  // (3) The m-point DFT down each column (column c: elements c m + r).
+  if (m > 1 && !big_m) {
+    odd_passes(Batch{y, m, p, m, 1});
+  } else if (m > 1) {
+    // Bluestein: X_q = w_q sum_r (x_r w_r) conj(w_{q - r}), the convolution
+    // by the M-point FFTs: the chirped column into the workspace, forward,
+    // times DFT_M(conj w) / M (in the forward's order), inverse, times w_q.
+    const int cols = plan.columns, log2_m = __ffs(big_m) - 1;
+    const FastDiv by_m(m);
+    for (int c0 = 0; c0 < p; c0 += cols) {
+      for (int u = tid; u < cols * big_m; u += threads) {
+        const int j = u >> log2_m, e = u & (big_m - 1);
+        ws[swz(u)] = e < m ? cmul(y[swz((c0 + j) * m + e)], __ldg(chirp + e))
+                           : make_float2(0.0f, 0.0f);
+      }
+      __syncthreads();
+      const Batch w{ws, big_m, cols, big_m, 1};
+      pow2_passes<false>(w, nullptr, nullptr, 0);
+      pow2_passes<true>(w, chirp_hat, nullptr, 0);
+      for (int u = tid; u < cols * m; u += threads) {
+        const int j = by_m.div(u), q = u - j * m;
+        y[swz((c0 + j) * m + q)] = cmul(ws[swz(j * big_m + q)], __ldg(chirp + q));
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
-  // The direct combine over the odd factor for bins k and N - k, then the
-  // two real frames' power.
-  for (int k = tid; k < n_bins; k += blockDim.x) {
-    const int kn = k ? n_fft - k : 0;
-    const int ka = k & (p - 1), kb = kn & (p - 1);
-    float2 za = y[ka], zb = y[kb];  // r = 0: W^0 = 1
-    for (int r = 1, ia = k, ib = kn; r < m; ++r) {
-      const float2 wa = __ldg(twiddle + ia), wb = __ldg(twiddle + ib);
-      const float2 ya = cmul(wa, y[r * p + ka]), yb = cmul(wb, y[r * p + kb]);
-      za.x += ya.x;
-      za.y += ya.y;
-      zb.x += yb.x;
-      zb.y += yb.y;
-      ia += k;
-      if (ia >= n_fft) ia -= n_fft;
-      ib += kn;
-      if (ib >= n_fft) ib -= n_fft;
-    }
+  // Z[k0 + P q] now sits at the odd passes' position of q plus m times the row
+  // passes' position of k0, swizzled: `bin_slot[k]`.
+  // Unpack: the thread of bin k <= N/2 reads Z[k] and Z[N - k] (whose slot
+  // no thread writes, as N - k > N/2) and writes both frames' power over
+  // Z[k], which only it reads.
+  for (int k = tid; k <= n / 2; k += threads) {
+    const int ia = __ldg(bin_slot + k), ib = __ldg(bin_slot + (k ? n - k : 0));
+    const float2 za = y[ia], zb = y[ib];
     const float ar = za.x + zb.x, ai = za.y - zb.y;
     const float br = za.x - zb.x, bi = za.y + zb.y;
-    pw[k] = 0.25f * (ar * ar + ai * ai);
-    pw[n_bins + k] = 0.25f * (br * br + bi * bi);
+    y[ia] = make_float2(0.25f * (ar * ar + ai * ai), 0.25f * (br * br + bi * bi));
   }
   __syncthreads();
 
-  // Banded mel sums over each filter's nonzero weights, then dB.
-  const int n_out = (pair ? 2 : 1) * n_mels;
-  for (int idx = tid; idx < n_out; idx += blockDim.x) {
-    const int f = idx / n_mels;
-    const int mel = idx - f * n_mels;
-    const int lo = __ldg(mel_offset + mel), hi = __ldg(mel_offset + mel + 1);
-    const float* pf = pw + f * n_bins + __ldg(mel_start + mel);
-    float acc = 0.0f;
-    for (int j = lo; j < hi; ++j) acc += __ldg(mel_weight + j) * pf[j - lo];
-    db[(f0 + f) * n_mels + mel] = 10.0f * log10f(fmaxf(acc, 1e-10f));
+  // Mel bands: a group of mel_lanes lanes a band, lane l summing weights
+  // l, l + mel_lanes, ... of both frames, then a shuffle tree in the group:
+  // a fixed order, so two calls give equal bits. Group i takes bands i and
+  // 2 groups - 1 - i of each pair of rounds, so that the wide high bands
+  // spread over the groups.
+  const int g = plan.mel_lanes, gl = tid & (g - 1), gid = tid / g, groups = threads / g;
+  for (int mel0 = 0, round = 0; mel0 < n_mels; mel0 += groups, ++round) {
+    const int mel = mel0 + (round & 1 ? groups - 1 - gid : gid);
+    float a = 0.0f, c = 0.0f;
+    if (mel < n_mels) {
+      const int lo = __ldg(mel_offset + mel), hi = __ldg(mel_offset + mel + 1);
+      const int k0 = __ldg(mel_start + mel) - lo;
+#pragma unroll 4
+      for (int j = lo + gl; j < hi; j += g) {
+        const float w = __ldg(mel_weight + j);
+        const float2 pw = y[__ldg(bin_slot + k0 + j)];
+        a = fmaf(w, pw.x, a);
+        c = fmaf(w, pw.y, c);
+      }
+    }
+    for (int o = g >> 1; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(kFullMask, a, o);
+      c += __shfl_xor_sync(kFullMask, c, o);
+    }
+    if (mel < n_mels && gl == 0) {
+      db[f0 * n_mels + mel] = 10.0f * log10f(fmaxf(a, 1e-10f));
+      if (pair) db[(f0 + 1) * n_mels + mel] = 10.0f * log10f(fmaxf(c, 1e-10f));
+    }
   }
 }
 
@@ -657,7 +928,9 @@ struct Args {
   const float* x;
   int batch, length, n_fft, hop, n_frames;
   const float* window;
-  const float2 *tw_n, *tw_fft, *tw_rk, *tw_m;
+  const float2 *tw_fft, *tw_rk, *tw_m;
+  const int *col_bin, *bin_slot;
+  const float2 *chirp, *chirp_hat;
   const int *mel_start, *mel_offset;
   const float* mel_weight;
   int n_mels;
@@ -689,41 +962,57 @@ int occupancy_warp(int device, Occupancy* occ) {
   return (int)warp_occupancy<P, M>(device, occ);
 }
 
-int block_occupancy(int device, int n_fft, Occupancy* occ) {
-  int smem_optin = 0, sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&smem_optin,
-                                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = block_smem_bytes(n_fft);
-  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(log_mel_mixed_radix_block_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The block path's plan on `device`; the kernel's shared-memory opt-in is set
+// once per device.
+cudaError_t block_device_plan(int device, int n_fft, BlockPlan* plan, int* sms) {
+  constexpr int kDevices = 64;
+  static int optin[kDevices], sm_count[kDevices];
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+  if (!optin[device]) {
+    int smem_optin = 0, count = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&smem_optin,
+                                             cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(log_mel_mixed_radix_block_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin);
+    if (err != cudaSuccess) return err;
+    sm_count[device] = count;
+    optin[device] = smem_optin;
+  }
+  *plan = block_plan(n_fft, (size_t)optin[device]);
+  *sms = sm_count[device];
+  return plan->smem > (size_t)optin[device] ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+int block_occupancy(int device, int n_fft, Occupancy* occ, BlockPlan* plan) {
+  int sms = 0;
+  cudaError_t err = block_device_plan(device, n_fft, plan, &sms);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, log_mel_mixed_radix_block_kernel);
   if (err != cudaSuccess) return (int)err;
-  const int threads = block_threads(n_fft);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, log_mel_mixed_radix_block_kernel,
-                                                      threads, smem);
+                                                      plan->threads, plan->smem);
   if (err != cudaSuccess) return (int)err;
-  *occ = Occupancy{kBlock, threads / 32, blocks, attr.numRegs, sms, smem};
+  *occ = Occupancy{kBlock, plan->threads / 32, blocks, attr.numRegs, sms, plan->smem};
   return 0;
 }
 
 int launch_block(const Args& a) {
-  Occupancy occ;
-  const int err0 = block_occupancy(a.device, a.n_fft, &occ);
-  if (err0) return err0;
+  BlockPlan plan;
+  int sms = 0;
+  cudaError_t err = block_device_plan(a.device, a.n_fft, &plan, &sms);
+  if (err != cudaSuccess) return (int)err;
+  if (plan.bluestein && (!a.chirp || !a.chirp_hat)) return (int)cudaErrorInvalidValue;
   const int pairs_per_example = (a.n_frames + 1) / 2;
   const long long blocks = (long long)a.batch * pairs_per_example;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int p = a.n_fft & -a.n_fft;  // the largest power of two dividing n_fft
-  const int log2_p = ilog2(p);
-  log_mel_mixed_radix_block_kernel<<<(unsigned)blocks, occ.warps * 32, occ.smem, a.stream>>>(
-      a.x, a.length, a.n_fft, p, log2_p, a.n_fft / p, a.hop, a.n_frames, pairs_per_example,
-      a.window, a.tw_n, a.mel_start, a.mel_offset, a.mel_weight, a.n_mels, a.db);
+  log_mel_mixed_radix_block_kernel<<<(unsigned)blocks, plan.threads, plan.smem, a.stream>>>(
+      a.x, a.length, a.hop, a.n_frames, pairs_per_example, plan, a.window, a.col_bin,
+      a.bin_slot, a.chirp, a.chirp_hat, a.mel_start, a.mel_offset, a.mel_weight, a.n_mels,
+      a.db);
   return (int)cudaGetLastError();
 }
 
@@ -751,13 +1040,16 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // Spectrum pass: unpadded (B, length) -> dB scratch (B, n_frames, n_mels),
 // frame t at padded offset t * hop of the reflect padding by n_fft / 2, for
 // any n_fft % 4 == 0 whose block-path block fits the shared memory, and any
-// hop. The tables of both paths, P the largest power of two dividing n_fft
-// and m = n_fft / P: tw_n W_N^j (N), read by the block path; tw_fft the
-// stage twiddles W_{2h}^j at [h - 1 + j] (P - 1), tw_rk W_N^{r k0} (m - 1, P)
-// and tw_m W_m^j (m), read by the warp path.
+// hop. The tables of both paths (`_twiddles_mixed_radix` and `_block_tables`
+// in ops/mel_kernels.py), P the largest power of two dividing n_fft and m =
+// n_fft / P: the warp path reads tw_fft, the stage twiddles W_{2h}^j at
+// [h - 1 + j] (P - 1), tw_rk W_N^{r k0} (m - 1, P) and tw_m W_m^j (m); the
+// block path col_bin (P), bin_slot (N) and, where m has a prime factor above
+// 7, Bluestein's chirp (m) and chirp_hat (M), null elsewhere.
 int log_mel_mixed_radix_launch(int device, const void* x, int batch, int length, int n_fft,
-                               int hop, int n_frames, const void* window, const void* tw_n,
-                               const void* tw_fft, const void* tw_rk, const void* tw_m,
+                               int hop, int n_frames, const void* window, const void* tw_fft,
+                               const void* tw_rk, const void* tw_m, const void* col_bin,
+                               const void* bin_slot, const void* chirp, const void* chirp_hat,
                                const void* mel_start, const void* mel_offset,
                                const void* mel_weight, int n_mels, void* db, void* stream) {
   if (n_fft < 4 || n_fft % 4 || batch < 1 || length < 1 || n_frames < 1 || n_mels < 1 ||
@@ -766,9 +1058,11 @@ int log_mel_mixed_radix_launch(int device, const void* x, int batch, int length,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Args a{(const float*)x, batch, length, n_fft, hop, n_frames, (const float*)window,
-               (const float2*)tw_n, (const float2*)tw_fft, (const float2*)tw_rk,
-               (const float2*)tw_m, (const int*)mel_start, (const int*)mel_offset, (const float*)mel_weight,
-               n_mels, (float*)db, (cudaStream_t)stream, device};
+               (const float2*)tw_fft, (const float2*)tw_rk, (const float2*)tw_m,
+               (const int*)col_bin, (const int*)bin_slot, (const float2*)chirp,
+               (const float2*)chirp_hat, (const int*)mel_start,
+               (const int*)mel_offset,
+               (const float*)mel_weight, n_mels, (float*)db, (cudaStream_t)stream, device};
   switch (n_fft) {
 #define CASE(n, p, m) \
   case n:             \
@@ -780,14 +1074,17 @@ int log_mel_mixed_radix_launch(int device, const void* x, int batch, int length,
   }
 }
 
-// The launch shape of n_fft on `device`, into out[5]: path (0 block, 1 warp
+// The launch shape of n_fft on `device`, into out[7]: path (0 block, 1 warp
 // with the rows in registers, 2 warp with the rows in shared memory), warps
-// a block, blocks an SM, registers a thread, dynamic shared bytes a block.
+// a block, blocks an SM, registers a thread, dynamic shared bytes a block;
+// then the block path's Bluestein length M (0: the staged radix-3/5/7
+// passes) and its columns a round (0 on the warp path).
 int log_mel_mixed_radix_occupancy(int device, int n_fft, int* out) {
   if (n_fft < 4 || n_fft % 4) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Occupancy occ;
+  BlockPlan plan{};
   int e = 0;
   switch (n_fft) {
 #define CASE(n, p, m)                 \
@@ -797,7 +1094,7 @@ int log_mel_mixed_radix_occupancy(int device, int n_fft, int* out) {
     MIXED_RADIX_WARP_INSTANCES(CASE)
 #undef CASE
     default:
-      e = block_occupancy(device, n_fft, &occ);
+      e = block_occupancy(device, n_fft, &occ, &plan);
   }
   if (e) return e;
   out[0] = occ.path;
@@ -805,6 +1102,8 @@ int log_mel_mixed_radix_occupancy(int device, int n_fft, int* out) {
   out[2] = occ.blocks_per_sm;
   out[3] = occ.regs;
   out[4] = (int)occ.smem;
+  out[5] = plan.bluestein;
+  out[6] = plan.columns;
   return 0;
 }
 
@@ -816,6 +1115,12 @@ int log_mel_epilogue_launch(int device, const void* db, int batch, int n_frames,
                             float eps, const void* bounds, void* out, void* stream) {
   return launch_log_mel_epilogue(device, db, batch, n_frames, n_mels, has_top_db, top_db,
                                  normalize, eps, bounds, out, stream);
+}
+
+// The epilogue's plan of a call (log_mel_epilogue.cuh), into out[4]: CTAs an
+// example, frames a CTA, resident (1) or re-read (0), shared bytes a CTA.
+int log_mel_epilogue_plan(int device, int batch, int n_frames, int n_mels, int* out) {
+  return log_mel_epilogue_plan_of(device, batch, n_frames, n_mels, out);
 }
 
 }  // extern "C"

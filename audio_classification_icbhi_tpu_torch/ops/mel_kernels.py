@@ -32,8 +32,10 @@ DFT on `wgmma` (TF32, three hi/lo products) fed by a TMA ring, at n_fft % 4
 `csrc/log_mel_radix8dif.cu` at n_fft 512, 1024, 2048, 4096 and 8192, where it is
 the fastest (`chip_smoke.py` phases 16 and 18 time the sources side by side);
 `csrc/log_mel_mixed_radix.cu` at every other n_fft, one warp a frame pair
-at the n_fft its launch function lists and one block a pair elsewhere
-(`mixed_radix_occupancy` reports which). All take any hop, up to
+at the n_fft its launch function lists and one block a pair elsewhere, by
+staged radix passes in shared memory and Bluestein where the odd factor has
+a prime above 7 (`block_plan`; `mixed_radix_occupancy` reports the path on
+the card). All take any hop, up to
 one limit, `MIXED_RADIX_MAX_N_FFT`; beyond it the CUDA route raises
 NotImplementedError naming the algorithm's ROADMAP.md row.
 
@@ -49,12 +51,15 @@ The fused wrappers have two forms, as the TPU kernels have (`with_masks`):
 the inference form, and the training form, which takes per-example
 SpecAugment bounds (B, 4) and zeroes those cells between the dB stage and
 normalize. Each wrapper counts its forms' launches apart: `launches` and
-`launches_masked` (which stays 0 for radix2, bf16x3 and f32: bounds raise).
-On a CPU tensor every wrapper runs `log_mel_fused_reference`.
+`launches_masked` (which stays 0 for radix2, bf16x3 and f32: bounds raise);
+`log_mel_epilogue.launches` counts the epilogue's launches of every wrapper.
+On a CPU tensor every wrapper runs `log_mel_fused_reference`;
+`epilogue_reference` is the plain version of the epilogue alone.
 
 Each CUDA source's header note says what bounds its kernel on the card and
-what its design does about it; the epilogue kernel is
-`csrc/log_mel_epilogue.cuh`, which all include. A wrapper allocates the dB
+what its design does about it; the epilogue kernel (a thread-block cluster
+an example, `epilogue_plan`) is `csrc/log_mel_epilogue.cuh`, which all
+include. A wrapper allocates the dB
 scratch and the output and launches the spectrum kernel and the epilogue on
 the current stream: two launches on the radix-8 and mixed-radix sources,
 which reflect each edge frame's samples inside the kernel; the DFT GEMM
@@ -103,11 +108,92 @@ _CONTRACTS = {
 HOPPER_SMEM_OPTIN = 232_448
 
 
+def _pow2_radices(length: int) -> list[int]:
+    """The radices of a power-of-two length's passes in
+    `csrc/log_mel_mixed_radix.cu` (`pow2_passes`), from the whole length
+    down: 8 while the span holds 8, then the rest, 2 or 4."""
+    eights, rest = divmod(length.bit_length() - 1, 3)
+    return [8] * eights + ([1 << rest] if rest else [])
+
+
+def _odd_factors(m: int) -> list[int]:
+    """m's prime factors, the smallest first: the radices of the block
+    path's odd passes where all are 3, 5 or 7 (`odd_passes`)."""
+    out, f = [], 3
+    while m > 1:
+        while m % f == 0:
+            out.append(f)
+            m //= f
+        f += 2
+    return out
+
+
+def digit_positions(length: int, radices: list[int]) -> np.ndarray:
+    """Where the block path's forward passes of these radices (decimation in
+    frequency, in place, the first at the whole length) leave output k: its
+    digits in the radices, least significant first, as the position's digits
+    most significant first."""
+    k = np.arange(length)
+    pos = np.zeros(length, dtype=np.int64)
+    span = length
+    for r in radices:
+        span //= r
+        pos += (k % r) * span
+        k = k // r
+    return pos
+
+
+def _round16(n: int) -> int:
+    """Complex values a buffer of n takes: n rounded up to the kernel's
+    16-value swizzle groups (`round16`)."""
+    return -(-n // 16) * 16
+
+
+def block_plan(n_fft: int, smem_optin: int = HOPPER_SMEM_OPTIN) -> dict:
+    """The plan of `csrc/log_mel_mixed_radix.cu`'s block path for n_fft =
+    P * m (its `block_plan`, which `chip_smoke.py` phase 16 reads back on the
+    card): P, m, Bluestein's length M (the power of two >= 2m - 1, where m has
+    a prime factor above 7; else 0, the staged radix-3/5/7 passes), the
+    Bluestein columns a round (all P where the workspace fits), threads a
+    block (16 complex values a thread of the pair or a round's workspace,
+    whichever is larger), lanes a mel band and dynamic
+    shared bytes: the frame pair, then the Bluestein workspace of columns x
+    M, each rounded up to 16 complex values."""
+    p = n_fft & -n_fft
+    m = n_fft // p
+    bluestein = 0
+    if any(f > 7 for f in _odd_factors(m)):
+        bluestein = 1 << (2 * m - 2).bit_length()
+
+    def smem(cols: int) -> int:
+        return 8 * (_round16(n_fft) + (_round16(cols * bluestein) if bluestein else 0))
+
+    columns = 1
+    if bluestein:
+        columns = p
+        while columns > 1 and smem(columns) > smem_optin:
+            columns //= 2
+    lanes = 1
+    while lanes < 32 and 512 * lanes <= n_fft:
+        lanes *= 2
+    work = max(n_fft, columns * bluestein)
+    return {"p": p, "m": m, "bluestein": bluestein, "columns": columns,
+            "threads": min(1024, max(64, -(-(work // 16) // 32) * 32)),
+            "mel_lanes": lanes, "smem_bytes": smem(columns)}
+
+
+def swizzle(a):
+    """The block path's shared-memory slot of complex value a (`swz`): a
+    XOR the higher groups of four index bits, within a's group of 16."""
+    a = np.asarray(a)
+    return a ^ (((a >> 4) ^ (a >> 8) ^ (a >> 12)) & 15)
+
+
 def mixed_radix_smem_bytes(n_fft: int) -> int:
     """Shared memory a block of `csrc/log_mel_mixed_radix.cu`'s block path
-    takes (its `block_smem_bytes`): the N complex values, then two power
-    spectra. Every n_fft the warp path takes needs less a pair (8 N bytes)."""
-    return 8 * n_fft + 8 * (n_fft // 2 + 1)
+    takes (`block_plan`). Every n_fft the warp path takes needs less a pair
+    (8 N bytes)."""
+    return block_plan(n_fft)["smem_bytes"]
 
 
 # the kernels' n_fft limit: the largest power of two whose mixed-radix block
@@ -252,21 +338,50 @@ def _twiddles_radix8dif(n_fft: int, device: torch.device) -> tuple[torch.Tensor,
 
 @functools.lru_cache(maxsize=8)
 def _twiddles_mixed_radix(n_fft: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """`csrc/log_mel_mixed_radix.cu`'s constants of n_fft = P * m (P its
-    largest power-of-two factor), built in float64, for either path, as the
-    launch function picks the path: window; W_N^j for every j < N (the block
-    path); the P-point FFT's stage twiddles W_{2h}^j at [h - 1 + j] (P - 1),
-    W_N^{r k0} as (m - 1, P) for r = 1 .. m - 1, and W_m^j (m) (the warp
-    path)."""
+    """`csrc/log_mel_mixed_radix.cu`'s window and the warp path's constants
+    of n_fft = P * m (P its largest power-of-two factor), built in float64:
+    the P-point FFT's stage twiddles W_{2h}^j at [h - 1 + j] (P - 1),
+    W_N^{r k0} as (m - 1, P) for r = 1 .. m - 1, and W_m^j (m). The block
+    path computes its twiddles (`_block_tables` has its tables)."""
     p = n_fft & -n_fft
     m = n_fft // p
     stages = np.concatenate([np.exp(-2j * np.pi * np.arange(h) / (2 * h))
                              for h in (1 << np.arange(p.bit_length() - 1))])
-    tables = (np.exp(-2j * np.pi * np.arange(n_fft) / n_fft), stages,
-              np.exp(-2j * np.pi * np.outer(np.arange(1, m), np.arange(p)) / n_fft),
+    tables = (stages, np.exp(-2j * np.pi * np.outer(np.arange(1, m), np.arange(p)) / n_fft),
               np.exp(-2j * np.pi * np.arange(m) / m))
     return (stft_ops.hann_window(n_fft, dtype=torch.float32, device=device),
             *(_dev(_complex_pairs(t), torch.float32, device) for t in tables))
+
+
+@functools.lru_cache(maxsize=8)
+def _block_tables(n_fft: int, device: torch.device) -> tuple[torch.Tensor | None, ...]:
+    """The block path's index tables and Bluestein constants for n_fft = P *
+    m (`block_plan`), the constants built in float64: col_bin, the row bin
+    at each position of a row after the row passes (P int32); bin_slot, the
+    swizzled slot where Z[k] ends (N int32): row_pos[k // P] + m
+    col_pos[k % P], col_pos where the row passes leave row bin k0 and row_pos
+    where the odd passes leave output q (q itself under Bluestein); then,
+    where m has a prime factor above 7, the chirp w_n = exp(-i pi (n^2 mod
+    2m) / m) (m) and DFT_M of the conjugate chirp (b_n = conj w_|n| at n mod
+    M for |n| < m) over M, at the forward passes' positions (M); None
+    elsewhere."""
+    plan = block_plan(n_fft)
+    p, m, big_m = plan["p"], plan["m"], plan["bluestein"]
+    col_pos = digit_positions(p, _pow2_radices(p))
+    row_pos = np.arange(m) if big_m else digit_positions(m, _odd_factors(m))
+    k = np.arange(n_fft)
+    tables = [_dev(np.argsort(col_pos), torch.int32, device),
+              _dev(swizzle(row_pos[k // p] + m * col_pos[k % p]), torch.int32, device)]
+    if not big_m:
+        return (*tables, None, None)
+    n = np.arange(m, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((n * n) % (2 * m)) / m)
+    b = np.zeros(big_m, complex)
+    b[:m] = np.conj(chirp)
+    b[big_m - m + 1:] = np.conj(chirp[1:][::-1])
+    hat = np.empty(big_m, complex)
+    hat[digit_positions(big_m, _pow2_radices(big_m))] = np.fft.fft(b) / big_m
+    return (*tables, *(_dev(_complex_pairs(t), torch.float32, device) for t in (chirp, hat)))
 
 
 # `csrc/log_mel_dft_gemm.cu`'s tiles: folded samples a TMA box row (128
@@ -358,7 +473,8 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
         raise ValueError("waveform must be contiguous")
     out = run_source(cuda_route(algorithm, n_fft), waveform, sample_rate, n_fft, hop_length,
                      n_mels, f_min=f_min, f_max=f_max, top_db=top_db, mel_scale=mel_scale,
-                     norm=norm, normalize=normalize, eps=eps, spec_mask_bounds=spec_mask_bounds)
+                     norm=norm, normalize=normalize, eps=eps, spec_mask_bounds=spec_mask_bounds,
+                     epilogue=log_mel_epilogue)
     if spec_mask_bounds is None:
         wrapper.launches += 1
     else:
@@ -369,24 +485,115 @@ def _log_mel_fused(wrapper, algorithm: str, waveform: torch.Tensor, sample_rate:
 def run_source(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int,
                hop_length: int, n_mels: int, *, f_min: float, f_max: float | None,
                top_db: float | None, mel_scale: str, norm: str | None, normalize: bool,
-               eps: float, spec_mask_bounds: torch.Tensor | None) -> torch.Tensor:
+               eps: float, spec_mask_bounds: torch.Tensor | None,
+               epilogue=None) -> torch.Tensor:
     """Launch CUDA source `source`'s spectrum kernel and the epilogue on a
-    checked, contiguous (B, L) float32 CUDA waveform; counts nothing. The
-    wrappers run `cuda_route`'s source through it; `chip_smoke.py` times
-    each source at the same shape."""
+    checked, contiguous (B, L) float32 CUDA waveform. The wrappers run
+    `cuda_route`'s source through it with `epilogue=log_mel_epilogue`, which
+    counts the epilogue's launch; by default (`epilogue_only`) it counts
+    nothing, as `chip_smoke.py` times each source at the same shape."""
     b, length = waveform.shape
     t = stft_ops.num_frames(length, n_fft, hop_length)
     db = torch.empty((b, t, n_mels), dtype=torch.float32, device=waveform.device)
     out = torch.empty((b, n_mels, t), dtype=torch.float32, device=waveform.device)
-    lib, dev_index, stream = spectrum_only(source, waveform, sample_rate, n_fft, hop_length,
-                                           n_mels, db, f_min=f_min, f_max=f_max,
-                                           mel_scale=mel_scale, norm=norm)
+    spectrum_only(source, waveform, sample_rate, n_fft, hop_length, n_mels, db, f_min=f_min,
+                  f_max=f_max, mel_scale=mel_scale, norm=norm)
+    (epilogue or epilogue_only)(source, db, out, top_db=top_db, normalize=normalize, eps=eps,
+                                spec_mask_bounds=spec_mask_bounds)
+    return out
+
+
+def epilogue_reference(db: torch.Tensor, top_db: float | None = None, normalize: bool = False,
+                       eps: float = 1e-8, bounds: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of the epilogue alone (`csrc/log_mel_epilogue.cuh`,
+    `_fused_epilogue` of the JAX package), in db's dtype: the (B, T, n_mels)
+    dB scratch -> top_db against each example's peak (before the mask) ->
+    the SpecAugment mask of (B, 4) `bounds` -> normalize -> (B, n_mels, T)."""
+    x = db.transpose(1, 2)
+    if top_db is not None:
+        x = torch.maximum(x, torch.amax(x, dim=(1, 2), keepdim=True) - top_db)
+    if bounds is not None:
+        x = mask_from_bounds(x, bounds)
+    return normalize_spectrogram(x, eps) if normalize else x.contiguous()
+
+
+# the most shared memory an epilogue CTA's band may take (`kEpilogueTileBytes`)
+EPILOGUE_TILE_BYTES = 196_608
+
+
+def epilogue_plan(batch: int, n_frames: int, n_mels: int, sms: int = 132) -> dict:
+    """The launch shape `csrc/log_mel_epilogue.cuh` picks for a call (its
+    `epilogue_plan`; `chip_smoke.py` reads the card's back and compares):
+    CTAs an example (the cluster, a power of two: the smallest that puts a
+    CTA on each SM over the batch, doubled up to 8 while a CTA's band takes
+    more than half of the 192 KiB tile budget, then up to 16 while it takes
+    more than all of it, never past n_mels), mels a CTA (its band of every
+    frame), the shared row pitch (the band | 1), whether the band is
+    resident in shared memory, its bytes, and threads a CTA (128, 256 or
+    512 by the band's cells: about 16 to 48 a thread)."""
+    def band(c):
+        return -(-n_mels // c)
+
+    def nbytes(c):
+        return n_frames * (band(c) | 1) * 4
+
+    c = 1
+    while c < 8 and batch * c < sms and 2 * c <= n_mels:
+        c *= 2
+    while c < 8 and nbytes(c) > EPILOGUE_TILE_BYTES // 2 and 2 * c <= n_mels:
+        c *= 2
+    while c < 16 and nbytes(c) > EPILOGUE_TILE_BYTES and 2 * c <= n_mels:
+        c *= 2
+    resident = nbytes(c) <= EPILOGUE_TILE_BYTES
+    cells = n_frames * band(c)
+    return {"cluster": c, "band": band(c), "pitch": band(c) | 1, "resident": resident,
+            "smem_bytes": nbytes(c) if resident else 0,
+            "threads": 128 if cells < 2048 else 256 if cells < 12288 else 512}
+
+
+def epilogue_device_plan(batch: int, n_frames: int, n_mels: int, device_index: int) -> dict:
+    """The epilogue's plan of a call as the card's library computes it
+    (`log_mel_epilogue_plan`): cluster, band, resident, shared bytes, threads."""
+    lib = _build.load("log_mel_mixed_radix")
+    out = (ctypes.c_int * 5)()
+    _build.launch(lib, lib.log_mel_epilogue_plan, device_index, batch, n_frames, n_mels, out)
+    cluster, band, resident, smem, threads = out
+    return {"cluster": cluster, "band": band, "resident": bool(resident), "smem_bytes": smem,
+            "threads": threads}
+
+
+def epilogue_only(source: str, db: torch.Tensor, out: torch.Tensor, *, top_db: float | None,
+                  normalize: bool, eps: float,
+                  spec_mask_bounds: torch.Tensor | None = None) -> None:
+    """The second half of `run_source`: the epilogue kernel of CUDA source
+    `source`'s library on a (B, T, n_mels) float32 dB scratch into the (B,
+    n_mels, T) `out`, both preallocated on the card, counted nowhere
+    (`chip_smoke.py` times it alone)."""
+    b, t, n_mels = db.shape
+    if tuple(out.shape) != (b, n_mels, t) or not (db.is_contiguous() and out.is_contiguous()):
+        raise ValueError(f"epilogue buffers {tuple(db.shape)} -> {tuple(out.shape)}")
+    lib = _build.load(source)
+    device = db.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    dev_index = device.index if device.index is not None else torch.cuda.current_device()
     bounds = None if spec_mask_bounds is None else spec_mask_bounds.contiguous()
     _build.launch(lib, lib.log_mel_epilogue_launch, dev_index, db.data_ptr(), b, t, n_mels,
-            int(top_db is not None), 0.0 if top_db is None else float(top_db),
-            int(normalize), float(eps), None if bounds is None else bounds.data_ptr(),
-            out.data_ptr(), stream)
-    return out
+                  int(top_db is not None), 0.0 if top_db is None else float(top_db),
+                  int(normalize), float(eps), None if bounds is None else bounds.data_ptr(),
+                  out.data_ptr(), stream)
+
+
+def log_mel_epilogue(source: str, db: torch.Tensor, out: torch.Tensor, *, top_db: float | None,
+                     normalize: bool, eps: float,
+                     spec_mask_bounds: torch.Tensor | None = None) -> None:
+    """The epilogue as every log-mel wrapper launches it after its spectrum
+    kernel: `epilogue_only`, counted in `log_mel_epilogue.launches`."""
+    epilogue_only(source, db, out, top_db=top_db, normalize=normalize, eps=eps,
+                  spec_mask_bounds=spec_mask_bounds)
+    log_mel_epilogue.launches += 1
+
+
+log_mel_epilogue.launches = 0
 
 
 def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: int,
@@ -396,8 +603,7 @@ def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: 
     (B, L) float32 CUDA waveform into the (B, T, n_mels) dB scratch `db`,
     counted nowhere (`chip_smoke.py` times it alone on preallocated
     buffers). The radix-8 and mixed-radix sources reflect inside the
-    kernel; the DFT GEMM reads the wrapper's reflect-padded copy. Returns (library,
-    device index, stream) for the epilogue."""
+    kernel; the DFT GEMM reads the wrapper's reflect-padded copy."""
     device = waveform.device
     filterbank = (sample_rate, n_fft, n_mels, float(f_min),
                   sample_rate / 2.0 if f_max is None else float(f_max), mel_scale, norm, device)
@@ -406,7 +612,6 @@ def spectrum_only(source: str, waveform: torch.Tensor, sample_rate: int, n_fft: 
     dev_index = device.index if device.index is not None else torch.cuda.current_device()
     _SPECTRA[source](lib, dev_index, waveform, n_fft, hop_length, db.shape[1], filterbank, db,
                      stream)
-    return lib, dev_index, stream
 
 
 @functools.lru_cache(maxsize=16)
@@ -414,14 +619,16 @@ def mixed_radix_occupancy(n_fft: int, device_index: int) -> dict:
     """The launch shape of n_fft on `csrc/log_mel_mixed_radix.cu` on a CUDA
     device, from its `log_mel_mixed_radix_occupancy`: path ("block",
     "registers", "shared"), warps a block, blocks an SM, warps an SM,
-    registers a thread, shared bytes a block."""
+    registers a thread, shared bytes a block; on the block path also
+    Bluestein's length M (0: staged radix-3/5/7 passes) and its columns a
+    round (`block_plan`)."""
     lib = _build.load("log_mel_mixed_radix")
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     _build.launch(lib, lib.log_mel_mixed_radix_occupancy, device_index, n_fft, out)
-    path, warps, blocks, regs, smem = out
+    path, warps, blocks, regs, smem, bluestein, columns = out
     return {"path": ("block", "registers", "shared")[path], "warps_per_block": warps,
             "blocks_per_sm": blocks, "warps_per_sm": warps * blocks, "registers": regs,
-            "smem_bytes": smem}
+            "smem_bytes": smem, "bluestein": bluestein, "columns": columns}
 
 
 @functools.lru_cache(maxsize=16)
@@ -618,10 +825,12 @@ def _spectrum_radix8dif(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream
 
 
 def _spectrum_mixed_radix(lib, dev_index, x, n_fft, hop, t, filterbank, db, stream) -> None:
-    tables = _twiddles_mixed_radix(n_fft, x.device)  # window, then both paths' twiddles
+    # window, then both paths' twiddles, then the block path's tables
+    tables = _twiddles_mixed_radix(n_fft, x.device) + _block_tables(n_fft, x.device)
     mel_start, mel_offset, mel_weight = mel_bands(*filterbank)
     _build.launch(lib, lib.log_mel_mixed_radix_launch, dev_index, x.data_ptr(), x.shape[0],
-            x.shape[1], n_fft, hop, t, *(table.data_ptr() for table in tables),
+            x.shape[1], n_fft, hop, t,
+            *(None if table is None else table.data_ptr() for table in tables),
             mel_start.data_ptr(), mel_offset.data_ptr(), mel_weight.data_ptr(),
             mel_start.numel(), db.data_ptr(), stream)
 
@@ -684,10 +893,10 @@ _build.declare("log_mel_radix8dif", {
     "log_mel_epilogue_launch": _EPILOGUE,
 })
 _build.declare("log_mel_mixed_radix", {
-    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _P, _P],
+    "log_mel_mixed_radix_launch": [_I, _P, _I, _I, _I, _I, _I, *[_P] * 11, _I, _P, _P],
     "log_mel_mixed_radix_occupancy": [_I, _I, _P],
     "log_mel_epilogue_launch": _EPILOGUE,
+    "log_mel_epilogue_plan": [_I, _I, _I, _I, _P],
 })
 _build.declare("log_mel_dft_gemm", {
     "log_mel_dft_gemm_launch": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P,

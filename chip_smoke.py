@@ -78,20 +78,23 @@ toolkit. Phases:
    only nodes are the spectrum kernel and the epilogue (no reflect-pad
    gather); then the mixed-radix source alone: each path's launch shape
    (`log_mel_mixed_radix_occupancy`: the warp instances, with the rows in
-   registers or in shared memory, and the block path), its spectrum kernel
-   alone beside the whole call at 768/256, 800/200, 1536/384, 400/160,
-   1280/256 and on the block path at 1200/300 and 4036/1009, two calls
-   bit-equal at each, and one row-5 call captured as a CUDA graph (the warp
+   registers or in shared memory, and the block path with the plan of
+   `mel_kernels.block_plan`), its spectrum kernel alone beside the whole call
+   at 768/256, 800/200, 1536/384, 400/160, 1280/256 and on the block path at
+   128 x 5 s at 1200/300, 1100/275, 4036/1009 (8 clips too), 12288/1536,
+   16380/4095 and 16384/1024, two calls bit-equal at each, each block-path
+   shape also beside its bound, plain version and yardstick and through the
+   golden gate, and one row-5 call captured as a CUDA graph (the warp
    spectrum kernel and the epilogue, nothing else); row 3 is also timed at
    1536/384;
 17. the entry points at n_fft 512 / hop 128 (row 3): the serving engine,
    one training epoch of `train.main` (row 3's masked form) on phase 9's
    corpus and the train step's time and device share at that front end,
    `analyze.main` at 1 s and 0.064 s windows, and the serving
-   engine at 768/256 (row 5) and 1536/384 (row 3 on the mixed-radix
-   source), each with the launch counts read around it and the card held
-   against the CPU; wav -> logits clips/s and classify_wave latency at
-   512/128 and 768/256;
+   engine at 768/256 (row 5), 1536/384 (row 3 on the mixed-radix
+   source) and 16384/1024 (row 1 on its block path), each with the launch
+   counts read around it and the card held against the CPU; wav -> logits
+   clips/s and classify_wave latency at 512/128 and 768/256;
 18. TPU-kernel row 7 (`bf16x3` / `f32`) on the DFT GEMM log-mel kernel (a
    folded real-input DFT on `wgmma`, fed by TMA; its SASS must hold HGMMA and
    UTMALDG, counted by `cuobjdump -sass`) at
@@ -110,7 +113,16 @@ toolkit. Phases:
    version and yardstick, with its achieved TF32 rate (MMA work over time,
    and its share of 495 TFLOP/s); the new source beside the radix-8 one at
    2048/512 (`run_source`); and `python -m audio_classification_icbhi_tpu_torch.parity`
-   at 2048/512, every row within its gate.
+   at 2048/512, every row within its gate;
+19. the shared epilogue alone (`csrc/log_mel_epilogue.cuh`, a thread-block
+   cluster an example) on the dB scratch of the serving batch, the train
+   step's front end at rows 1-3's n_fft, row 3 at 512/128 and the
+   analyzer's bucket: its plan read from the card against
+   `mel_kernels.epilogue_plan`, against `epilogue_reference` in float64 with
+   and without top_db, two calls bit-equal, eager and as a CUDA graph beside
+   its bytes bound, plain version and a PyTorch yardstick; and its launches
+   over every main-path run above (one with each log-mel call), which the
+   kernels line reports.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -118,9 +130,9 @@ result. The line before the last lists the kernels as JSON; the last line is
 
     python3 chip_smoke.py --parent DIR
 
-times the fused conv-block sources and the fused wav -> logits path of an
-earlier checkout unpacked in DIR beside this one's instead
-(`compare_parent`), and runs no phase.
+times the mixed-radix block path and the epilogue alone of an earlier
+checkout unpacked in DIR beside this one's instead (`compare_parent`,
+`mel_times`), and runs no phase.
 """
 
 from __future__ import annotations
@@ -394,12 +406,13 @@ def main() -> int:
             paths.append(Path(tmp) / f"clip{i}.wav")
             write_wav(paths[-1], clips[i, ::2], SR // 2)  # 8 kHz files, resampled on load
 
-        mel_kernels.log_mel_radix16dif_fused.launches = 0
+        zero_counts()
         engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
         probs = engine.predict_probs(clips)
         one = engine.classify_wave(clips[0])
         files = engine.classify_files(paths)
         torch.cuda.synchronize()
+        read_epilogue("phase 5 serving")
         launches = {"log_mel_radix16dif_fused": mel_kernels.log_mel_radix16dif_fused.launches}
         print(f"phase 5: main path launches {launches}")
         check(all(n > 0 for n in launches.values()), "every kernel launched on the main path")
@@ -503,6 +516,10 @@ def main() -> int:
         mixed = phase16_mixed_radix(dev, card)
         mixed_launches = phase17_entry_points(dev, rng, card, Path(tmp), corpus, recording)
         dft_gemm = phase18_dft_gemm(dev, card, Path(tmp))
+    epilogue = phase19_epilogue(dev, card)
+    print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
+    check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
+    epilogue["launches"] = EPILOGUE_MAIN_PATH["launches"]
     for alg, n in mixed_launches.items():
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
@@ -524,6 +541,7 @@ def main() -> int:
              mixed["radix4dif_fused_masked"]),
             ("log_mel_radix4dif_fused_1536", MIXED_ROWS["radix4dif_fused"][0], 1536,
              mixed["radix4dif_fused_1536"]),
+            ("log_mel_radix16dif_fused_16384", ":1270", 16384, mixed["radix16dif_fused_16384"]),
             *((f"log_mel_{alg}", line, B7_MAIN[0], dft_gemm[alg])
               for alg, line in (("bf16x3", ":518"), ("f32", ":497"))))
     print(json.dumps({"kernels": [
@@ -534,15 +552,17 @@ def main() -> int:
         + [{"name": name, "route": "cuda", "source": csrc + source,
             "replaces": "audio_classification_icbhi_tpu/ops/pallas_conv.py" + line,
             **{k: conv_rows[name][k] for k in (*serving, "graph_ms")}}
-           for name, (source, line, _) in CONV_ROWS.items()]}))
+           for name, (source, line, _) in CONV_ROWS.items()]
+        + [{"name": "log_mel_epilogue", "route": "cuda", "source": csrc + "log_mel_epilogue.cuh",
+            "replaces": pallas_mel + ":683", **{k: epilogue[k] for k in (*serving, "graph_ms")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 def wrapper_of(row_name: str) -> str:
-    """The algorithm of a kernel-table row name: log_mel_<alg>[_masked][_1536]."""
-    return row_name.removeprefix("log_mel_").removesuffix("_1536").removesuffix("_masked")
+    """The algorithm of a kernel-table row name: log_mel_<alg>[_masked][_<n_fft>]."""
+    return re.sub(r"(_masked)?(_\d+)?$", "", row_name.removeprefix("log_mel_"))
 
 
 def phase7_masked_kernel(dev, rng) -> float:
@@ -691,12 +711,12 @@ def phase9_trainer(tmp: Path, card: str) -> tuple[Path, int]:
     cwd = os.getcwd()
     os.chdir(work)  # config.yaml's checkpoint_dir and log_dir are relative
     try:
-        for name in ("launches", "launches_masked"):
-            setattr(mel_kernels.log_mel_radix16dif_fused, name, 0)
+        zero_counts()
         t0 = time.perf_counter()
         history = train_entry.main(["--config", config, "--data-path", str(corpus),
                                     "--epochs", "2"])
         torch.cuda.synchronize()
+        read_epilogue("phase 9 training")
         wall = time.perf_counter() - t0
         launches = {"log_mel_radix16dif_fused (masked)":
                     mel_kernels.log_mel_radix16dif_fused.launches_masked,
@@ -914,13 +934,13 @@ def phase12_analyzer(tmp: Path, corpus: Path, card: str) -> tuple[Path, dict[str
     runs = [(0.5, v) for v in analyze.VARIANTS] + [(0.25, "realtime"), (1.0, "parallel")]
     launches = {"inference": 0}
     for duration, variant in runs:
-        for fn in (k8, k16):
-            fn.launches = fn.launches_masked = 0
+        zero_counts()
         t0 = time.perf_counter()
         eng, results, csv_path = quiet(analyze.main, [
             variant, "--audio", str(recording), "--model", str(trained),
             "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis")])
         torch.cuda.synchronize()
+        read_epilogue(f"phase 12 analyze {variant}")
         wall = time.perf_counter() - t0
         n8, n16 = k8.launches, k16.launches
         rows = csv_path.read_text().strip().splitlines()
@@ -961,12 +981,12 @@ def phase12_analyzer(tmp: Path, corpus: Path, card: str) -> tuple[Path, dict[str
     cfg["training"].update(checkpoint_dir=str(tmp / "r8" / "ckpt"), log_dir=str(tmp / "r8" / "runs"))
     cfg_path = tmp / "config_n_fft_1024.yaml"
     cfg_path.write_text(json.dumps(cfg))
-    for fn in (k8, k16):
-        fn.launches = fn.launches_masked = 0
+    zero_counts()
     t0 = time.perf_counter()
     history = quiet(train_entry.main, ["--config", str(cfg_path), "--data-path", str(corpus),
                                        "--epochs", "1"])
     torch.cuda.synchronize()
+    read_epilogue("phase 12 training")
     launches["masked"] = k8.launches_masked
     print(f"phase 12: [{card}] train.main, 1 epoch at n_fft 1024 / hop 256: "
           f"{time.perf_counter() - t0:.1f} s; history {json.dumps(history)}; launches radix8 "
@@ -1281,6 +1301,21 @@ def zero_counts() -> None:
         getattr(ck, name).launches = 0
     for fn in mel_kernels.WRAPPERS.values():
         fn.launches = fn.launches_masked = 0
+    mel_kernels.log_mel_epilogue.launches = 0
+
+
+# the epilogue's launches over every main-path run (`read_epilogue`)
+EPILOGUE_MAIN_PATH = {"launches": 0}
+
+
+def read_epilogue(what: str) -> None:
+    """After a main-path run whose counts `zero_counts` set to 0: the
+    epilogue launched once with each log-mel wrapper launch; its count adds
+    to the kernels line's `log_mel_epilogue` launches."""
+    n = mel_kernels.log_mel_epilogue.launches
+    calls = sum(fn.launches + fn.launches_masked for fn in mel_kernels.WRAPPERS.values())
+    check(n == calls, f"{what}: the epilogue launched with each log-mel call ({n} of {calls})")
+    EPILOGUE_MAIN_PATH["launches"] += n
 
 
 def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[str, int]:
@@ -1437,8 +1472,8 @@ MIXED_ROWS = {
     "radix2": (":633", (800, 200), ((800, 200), (400, 160), (2048, 512))),
 }
 # rows 1-2 at n_fft that log_mel_radix8dif.cu does not take, which run the
-# mixed-radix kernel, up to its limit (16,384: 196,616 bytes of shared memory
-# a block)
+# mixed-radix kernel, up to its limit (16,384: 131,072 bytes of shared memory
+# a block on its block path)
 MIXED_RADIX_ROWS_1_2 = (("radix16dif_fused", (6144, 512)), ("radix8dif_fused", (3072, 768)),
                         ("radix8dif_fused", (12288, 1536)), ("radix16dif_fused", (16384, 1024)))
 # the shapes where both log-mel sources can run, timed side by side: rows
@@ -1574,6 +1609,7 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
         if alg != "radix2":
             outs["masked"] = features_from_wavs(fe, x, augment=True, draws=draws_to(draws, dev))[..., 0]
         torch.cuda.synchronize()
+        read_epilogue(f"phase 16 MelFrontend {alg}")
         launches[alg] = wrappers[alg].launches + wrappers[alg].launches_masked
         check(wrappers[alg].launches == 2 and wrappers[alg].launches_masked == len(outs) - 2,
               f"MelFrontend(backend='pallas') launched {alg} in each form")
@@ -1633,7 +1669,7 @@ def phase16_mixed_radix(dev, card: str) -> dict[str, dict]:
         "library_ms": library_ms}
     compare_sources(dev, card, rng)
     radix8_design(dev, card, rng)
-    mixed_radix_design(dev, card, rng)
+    rows["radix16dif_fused_16384"] = mixed_radix_design(dev, card, rng)
     return rows
 
 
@@ -1743,28 +1779,52 @@ def radix8_design(dev, card: str, rng: np.random.Generator) -> None:
 # the mixed-radix source alone: rows 5, 6 and 3 at their shapes, the 25 ms /
 # 10 ms speech front end (400/160, two pairs a warp), 1280/256, the other
 # warp instances at 448/160 (the radix-7 butterfly; a hop that does not
-# divide n_fft) and 480/160 (m = 15), and its block path at 1200/300 (m = 75,
-# no warp instance) and 4036/1009 (m = 1009, a prime above 7: the direct
-# combine, 1,009 products a bin, so 8 clips); (batch, n_fft, hop)
-MIXED_DESIGN_SHAPES = ((BATCH, 768, 256), (BATCH, 800, 200), (BATCH, 1536, 384),
-                       (BATCH, 400, 160), (BATCH, 1280, 256), (BATCH, 448, 160),
-                       (BATCH, 480, 160), (BATCH, 1200, 300), (8, 4036, 1009))
+# divide n_fft) and 480/160 (m = 15); then BLOCK_SHAPES; (batch, n_fft, hop)
+MIXED_WARP_SHAPES = ((BATCH, 768, 256), (BATCH, 800, 200), (BATCH, 1536, 384),
+                     (BATCH, 400, 160), (BATCH, 1280, 256), (BATCH, 448, 160), (BATCH, 480, 160))
+# the block path (no warp instance), 128 clips of 5 s: 1200/300 (m = 75: the
+# staged radix-3/5/5 passes), 1100/275 (m = 275 = 5^2 11) and 4036/1009 (m =
+# 1009; also at 8 clips, as earlier PRs timed it), Bluestein; 12288/1536 (P =
+# 4096, m = 3) and 16384/1024 (P = 16,384), rows 1-2 there; 16380/4095 (m =
+# 4095 = 3^2 5 7 13: Bluestein at M = 8192, the most shared memory of any
+# n_fft)
+BLOCK_SHAPES = ((BATCH, 1200, 300), (BATCH, 1100, 275), (8, 4036, 1009), (BATCH, 4036, 1009),
+                (BATCH, 12288, 1536), (BATCH, 16380, 4095), (BATCH, 16384, 1024))
+MIXED_DESIGN_SHAPES = MIXED_WARP_SHAPES + BLOCK_SHAPES
 # n_fft whose launch shape phase 16 prints: every warp instance of the
-# instance of the source (the first nine), then some of its block path
-MIXED_OCCUPANCY_N_FFT = (400, 448, 480, 768, 800, 1280, 1536, 3072, 6144, 1200, 4036, 12288,
-                         16384)
+# source (the first nine), then its block path
+MIXED_OCCUPANCY_N_FFT = (400, 448, 480, 768, 800, 1280, 1536, 3072, 6144, 1200, 1100, 4036,
+                         12288, 16380, 16384)
 
 
-def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
+def golden_errors(run, n_fft: int, hop: int, duration: float) -> tuple[float, float]:
+    """max |run(battery) - f64 golden| over the parity battery of `duration`
+    seconds, all cells and the 25 dB active region; run takes the (8, L)
+    float32 battery on the card and returns dB (8, n_mels, T)."""
+    wavs = parity_battery(int(SR * duration))
+    want = np.stack([golden_mel(w, SR, n_fft, hop, N_MELS) for w in wavs])
+    got = run(torch.from_numpy(wavs).cuda()).double().cpu().numpy()
+    err = np.abs(got - want)
+    active = want >= want.max(axis=(1, 2), keepdims=True) - 25.0
+    return float(err.max()), float(err[active].max())
+
+
+def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> dict:
     """`csrc/log_mel_mixed_radix.cu` alone: the launch shape of each
     MIXED_OCCUPANCY_N_FFT from `log_mel_mixed_radix_occupancy` (path, warps
-    an SM, registers, shared bytes; each warp instance on a warp path); at each
-    MIXED_DESIGN_SHAPES shape the whole call against the plain version in
-    float64 (normalize on, tol 2e-3), the spectrum kernel alone on
-    preallocated buffers beside the whole call (CUDA events, in turns), and
-    two calls bit-equal; one row-5 call at 768/256 captured as a CUDA graph:
-    two kernel nodes, the warp spectrum kernel and the epilogue, so no
-    reflect-pad gather."""
+    an SM, registers, shared bytes; each warp instance on a warp path, each
+    other n_fft on the block path with `mel_kernels.block_plan`'s shared
+    bytes, Bluestein length and columns); at each MIXED_DESIGN_SHAPES shape
+    the whole call against the plain version in float64 (normalize on, tol
+    2e-3), the spectrum kernel alone on preallocated buffers beside the
+    whole call (CUDA events, in turns), and two calls bit-equal; at each
+    BLOCK_SHAPES shape also the plain version's time, the torch.stft
+    yardstick and the bound, and the golden gate over the parity battery at
+    5 and 1 s (1e-3 dB, unrestricted at n_fft >= 1536, in the 25 dB active
+    region below); one row-5 call at 768/256 captured as a CUDA graph: two
+    kernel nodes, the warp spectrum kernel and the epilogue, so no
+    reflect-pad gather. Returns the block path's kernel-line numbers at
+    16384/1024 (row 1 there) but its launches, which phase 17 counts."""
     paths = {}
     for n_fft in MIXED_OCCUPANCY_N_FFT:
         occ = mel_kernels.mixed_radix_occupancy(n_fft, dev.index or 0)
@@ -1772,12 +1832,21 @@ def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
         print(f"phase 16: [{card}] log_mel_mixed_radix n_fft {n_fft} (P {n_fft & -n_fft}, m "
               f"{n_fft // (n_fft & -n_fft)}): {occ['path']} path, {occ['warps_per_sm']} warps "
               f"an SM ({occ['blocks_per_sm']} blocks of {occ['warps_per_block']}), "
-              f"{occ['registers']} registers a thread, {occ['smem_bytes']} shared bytes a block")
+              f"{occ['registers']} registers a thread, {occ['smem_bytes']} shared bytes a block"
+              + (f"; {'Bluestein M ' + str(occ['bluestein']) + ', ' + str(occ['columns']) + ' columns a round' if occ['bluestein'] else 'staged radix-3/5/7 passes'}"
+                 if occ["path"] == "block" else ""))
         check(occ["warps_per_sm"] > 0, f"the mixed-radix source launches at n_fft {n_fft}")
-    check(all(paths[n] != "block" for n in MIXED_OCCUPANCY_N_FFT[:9]),
-          "every warp instance (rows 3, 5 and 6 among them) runs a warp path")
+        if occ["path"] == "block":
+            plan = mel_kernels.block_plan(n_fft)
+            check((occ["smem_bytes"], occ["bluestein"], occ["columns"], 32 * occ["warps_per_block"])
+                  == (plan["smem_bytes"], plan["bluestein"], plan["columns"], plan["threads"]),
+                  f"the block path's plan at {n_fft} is `mel_kernels.block_plan`'s")
+    check(all(paths[n] != "block" for n in MIXED_OCCUPANCY_N_FFT[:9])
+          and all(paths[n] == "block" for n in MIXED_OCCUPANCY_N_FFT[9:]),
+          "every warp instance (rows 3, 5 and 6 among them) runs a warp path, the rest the block path")
     kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None,
               normalize=True, eps=1e-8, spec_mask_bounds=None)
+    row = {}
     for b, n_fft, hop in MIXED_DESIGN_SHAPES:
         x = torch.from_numpy(synth_clips(rng, b)).to(dev)
         db = torch.empty((b, 1 + CLIP // hop, N_MELS), dtype=torch.float32, device=dev)
@@ -1794,16 +1863,38 @@ def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
         err = (first.double() - want).abs().max().item()
         del want
         equal = torch.equal(first, call())
-        iters = 20 if n_fft == 4036 else 50
-        times = [cuda_ms(f, iters) for f in (spectrum, call, spectrum, call)]
-        print(f"phase 16: [{card}] log_mel_mixed_radix at {n_fft}/{hop} "
-              f"({mel_kernels.mixed_radix_occupancy(n_fft, dev.index or 0)['path']} path) "
+        times = [cuda_ms(f, 50) for f in (spectrum, call, spectrum, call)]
+        path = paths.get(n_fft) or mel_kernels.mixed_radix_occupancy(n_fft, dev.index or 0)["path"]
+        print(f"phase 16: [{card}] log_mel_mixed_radix at {n_fft}/{hop} ({path} path) "
               f"B={b} x 5 s: spectrum kernel "
               f"alone {times[0]:.4f} / {times[2]:.4f} ms, the whole call {times[1]:.4f} / "
               f"{times[3]:.4f} ms; max|- plain f64| {err:.3e} (tol 2e-3); two calls bit-equal: "
               f"{equal}")
         check(err <= 2e-3, f"the mixed-radix source vs plain at {n_fft}/{hop}")
         check(equal, f"two mixed-radix calls give equal bits at {n_fft}/{hop}")
+        if (b, n_fft, hop) in BLOCK_SHAPES:
+            bound_ms, bound_by, floors = bound(b, CLIP, dev, n_fft, hop)
+            plain_ms = cuda_ms(lambda: mel_kernels.log_mel_fused_reference(
+                x, SR, n_fft, hop, N_MELS, normalize=True), iters=5)
+            library_ms = cuda_ms(yardstick(x, n_fft, hop), iters=10)
+            gates = []
+            for duration in (5.0, 1.0):
+                all_cells, active = golden_errors(lambda w: mel_kernels.run_source(
+                    "log_mel_mixed_radix", w, SR, n_fft, hop, N_MELS, **dict(kw, normalize=False)),
+                    n_fft, hop, duration)
+                gates.append((all_cells, active))
+                unrestricted = n_fft >= 1536
+                check((all_cells if unrestricted else active) <= 1e-3,
+                      f"the block path vs golden at {n_fft}/{hop}, {duration} s")
+            print(f"phase 16: [{card}] block path {n_fft}/{hop} B={b} x 5 s: the whole call "
+                  f"{min(times[1], times[3]):.4f} ms, plain f32 {plain_ms:.4f} ms, torch.stft "
+                  f"yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+                  f"{floors['bytes']:.4f}, operations {floors['operations']:.4f}); golden 5 s / 1 s: "
+                  + " / ".join(f"{a:.3e} all cells, {c:.3e} active" for a, c in gates)
+                  + f" (tol 1e-3 {'unrestricted' if n_fft >= 1536 else 'active'})")
+            if n_fft == 16384:
+                row = {"max_abs_err": err, "ms": times[3], "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         del x, db, first
 
     x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
@@ -1819,6 +1910,7 @@ def mixed_radix_design(dev, card: str, rng: np.random.Generator) -> None:
           and sorted(sum(found, [])) == sorted(stems) and all(len(f) == 1 for f in found),
           "row 5 launches the warp spectrum kernel and the epilogue, nothing else")
     check(torch.equal(graph_out, eager), "the captured call replays the eager one")
+    return row
 
 
 # `--parent`: run in a subprocess whose cwd is a checkout: loads this file,
@@ -1829,86 +1921,132 @@ sys.path.insert(0, sys.argv[1])
 spec = importlib.util.spec_from_file_location("smoke_timer", sys.argv[2])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
-print(json.dumps(smoke.conv_times()))
+print(json.dumps(smoke.mel_times()))
 """
+# the epilogue's shapes: (what, batch, clip length, n_fft, hop, masked): the
+# serving batch at 2048/512, the train step's front end (64 x 8 s) at rows
+# 1-3's n_fft in their training form, row 3 at 512/128 serving, and the
+# analyzer's bucket (64 windows of 0.5 s, 1024/256)
+EPILOGUE_SHAPES = (("serving 2048/512", BATCH, CLIP, 2048, 512, False),
+                   ("row 1 masked 2048/512", 64, TRAIN_CLIP, 2048, 512, True),
+                   ("row 2 masked 1024/256", 64, TRAIN_CLIP, 1024, 256, True),
+                   ("row 3 512/128", BATCH, CLIP, 512, 128, False),
+                   ("row 3 masked 512/128", 64, TRAIN_CLIP, 512, 128, True),
+                   ("analyzer 1024/256", 64, WINDOW, 1024, 256, False))
 
 
-def conv_times() -> dict:
-    """The fused conv-block sources' numbers in whichever checkout's package
-    is imported, through functions that checkout and this one share
-    (`fold_conv_block`, `conv_block1_folded`, `conv_packed_folded`,
-    `make_fused_apply`): each block at the serving shapes (block 1 on the
-    log-mel of 128 clips of 5 s at 2048/512, blocks 2 and 3 on the plain
-    outputs of the blocks before) and the analyzer's (64 windows of 0.5 s),
-    held to its plain version within one bf16 ulp and timed by CUDA events;
-    then fused wav -> logits at 2048/512 through a seeded serving
-    checkpoint's engine with ICBHI_FUSED_CNN=1: clips/s by the host clock
-    around 20 synchronized batches, five times, and the device's time a
-    batch as a replayed CUDA graph of one step."""
+def adaptive_ms(fn, budget_ms: float = 150.0, most: int = 50) -> float:
+    """cuda_ms with as many calls as fit about budget_ms (3 to `most`)."""
+    one = cuda_ms(fn, 1, warmup=1)
+    return cuda_ms(fn, int(min(most, max(3, budget_ms / max(one, 1e-3)))))
+
+
+def epilogue_raw(db: torch.Tensor, out: torch.Tensor, top_db, normalize: bool,
+                 bounds) -> None:
+    """The epilogue kernel of the radix-8 source's library through its C
+    entry point alone (which every checkout since the port's first has),
+    counted nowhere: how `--parent` reaches an earlier checkout's epilogue."""
+    lib = _build.load("log_mel_radix8dif")
+    b, t, n_mels = db.shape
+    _build.launch(lib, lib.log_mel_epilogue_launch, db.device.index or 0, db.data_ptr(), b, t,
+                  n_mels, int(top_db is not None), 0.0 if top_db is None else float(top_db),
+                  int(normalize), 1e-8, None if bounds is None else bounds.data_ptr(),
+                  out.data_ptr(), torch.cuda.current_stream(db.device).cuda_stream)
+
+
+def epilogue_yardstick(db: torch.Tensor, top_db, bounds):
+    """The library chain timed beside the epilogue (the port never calls
+    it): amax, clamp, mask, mean / std and the transpose, on the same
+    (B, T, n_mels) scratch; in db's dtype."""
+    def library():
+        x = db.transpose(1, 2)
+        if top_db is not None:
+            x = torch.clamp(x, min=x.amax(dim=(1, 2), keepdim=True) - top_db)
+        if bounds is not None:
+            x = aug.mask_from_bounds(x, bounds)
+        mean = x.mean(dim=(1, 2), keepdim=True)
+        return ((x - mean) / (x.std(dim=(1, 2), keepdim=True) + 1e-8)).contiguous()
+
+    return library
+
+
+def epilogue_scratch(rng: np.random.Generator, b: int, length: int, n_fft: int, hop: int,
+                     masked: bool):
+    """A (B, T, n_mels) dB scratch as the spectrum kernel writes it for
+    synthetic clips (the source `cuda_route` picks, counted nowhere), and
+    edge bounds where masked."""
+    x = torch.from_numpy(synth_clips(rng, b, length)).cuda()
+    t = 1 + length // hop
+    db = torch.empty((b, t, N_MELS), dtype=torch.float32, device=x.device)
+    mel_kernels.spectrum_only(mel_kernels.cuda_route("radix8dif_fused", n_fft), x, SR, n_fft, hop,
+                              N_MELS, db)
+    bounds = (edge_bounds(b, t, torch.Generator().manual_seed(19)).cuda() if masked else None)
+    return db, bounds
+
+
+def mel_times() -> dict:
+    """This PR's two log-mel kernels in whichever checkout's package is
+    imported, through what that checkout and this one share (`run_source`,
+    `spectrum_only`, the libraries' epilogue entry point): the block path at
+    BLOCK_SHAPES (its spectrum kernel alone and the whole call, normalize on,
+    by CUDA events; the whole call against the plain version in float64; the
+    golden errors over the 5 s parity battery, all cells and active region)
+    and the epilogue alone at EPILOGUE_SHAPES (eager and as a CUDA graph;
+    against the yardstick in float64; two calls bit-equal)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.default_rng(10)
-    model = seeded_cnn(14).to(dev)
-    sd = model.state_dict()
-    folded = [ck.fold_conv_block(*ck.block_args_from_state_dict(sd, i), bias_bf16=i == 0,
-                                 device=dev) for i in range(3)]
-    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
-    xa = torch.from_numpy(rng.standard_normal((64, N_MELS, 32, 1)).astype(np.float32)).to(dev)
-    out = {"calls": {}}
-    with torch.inference_mode():
-        feats = features_from_wavs(MelFrontend.from_config(load_config()), x)
-        for where, f1 in (("serving", feats), ("analyzer", xa)):
-            f2 = ck.conv_block1_reference(f1, folded[0])
-            f3 = ck.conv_packed_reference(f2, folded[1])
-            for blk, inp in enumerate((f1, f2, f3)):
-                def call(blk=blk, inp=inp):
-                    return (ck.conv_block1_folded(inp, folded[0]) if blk == 0
-                            else ck.conv_packed_folded(inp, folded[blk]))
-                want = (ck.conv_block1_reference(inp, folded[0]) if blk == 0
-                        else ck.conv_packed_reference(inp, folded[blk]))
-                err, ok = one_bf16_ulp(call(), want)
-                check(ok, f"block {blk + 1} at {tuple(inp.shape)} within one bf16 ulp ({err:.3e})")
-                out["calls"][f"block {blk + 1} {where} {tuple(inp.shape)}"] = {
-                    "max_abs_err": err, "ms": cuda_ms(call, 100, warmup=5),
-                    "graph_ms": graph_ms(call)}
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = seeded_checkpoint(Path(tmp) / "serve.ckpt", mixed_precision=True, head_scale=15.0)
-        os.environ["ICBHI_FUSED_CNN"] = "1"
-        try:
-            engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
-            apply = engine._apply_fn  # the switch is read here, once
-        finally:
-            os.environ.pop("ICBHI_FUSED_CNN", None)
-    check(apply is not engine.model, "the engine took the fused apply")
-    rates = []
-    with torch.inference_mode():
-        def step():
-            return apply(features_from_wavs(engine.frontend, x))
+    rng = np.random.default_rng(11)
+    kw = dict(f_min=0.0, f_max=None, top_db=None, mel_scale="htk", norm=None, eps=1e-8,
+              spec_mask_bounds=None)
+    out = {"block": {}, "epilogue": {}}
+    for b, n_fft, hop in BLOCK_SHAPES:
+        x = torch.from_numpy(synth_clips(rng, b)).to(dev)
+        db = torch.empty((b, 1 + CLIP // hop, N_MELS), dtype=torch.float32, device=dev)
 
-        for _ in range(3):
-            step()
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                logits = step()
-            torch.cuda.synchronize()
-            rates.append(BATCH * 20 / (time.perf_counter() - t0))
-        device_ms = graph_ms(step, calls=1, iters=20)
-    check(bool(torch.isfinite(logits).all()), "finite fused logits")
-    out["fused_wav_to_logits"] = {"clips_per_s": rates, "device_ms": device_ms,
-                                  "logit_sum": logits.float().sum().item()}
+        def spectrum():
+            mel_kernels.spectrum_only("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS, db)
+
+        def call():
+            return mel_kernels.run_source("log_mel_mixed_radix", x, SR, n_fft, hop, N_MELS,
+                                          normalize=True, **kw)
+
+        want = mel_kernels.log_mel_fused_reference(x.double(), SR, n_fft, hop, N_MELS,
+                                                   normalize=True)
+        err = (call().double() - want).abs().max().item()
+        del want
+        golden = golden_errors(lambda w: mel_kernels.run_source(
+            "log_mel_mixed_radix", w, SR, n_fft, hop, N_MELS, normalize=False, **kw),
+            n_fft, hop, 5.0)
+        out["block"][f"{n_fft}/{hop} B={b}"] = {
+            "spectrum_ms": adaptive_ms(spectrum), "call_ms": adaptive_ms(call),
+            "max_abs_err": err, "golden_all": golden[0], "golden_active": golden[1]}
+        del x, db
+    for what, b, length, n_fft, hop, masked in EPILOGUE_SHAPES:
+        db, bounds = epilogue_scratch(rng, b, length, n_fft, hop, masked)
+        y = torch.empty((b, N_MELS, db.shape[1]), dtype=torch.float32, device=dev)
+
+        def epilogue():
+            epilogue_raw(db, y, None, True, bounds)
+
+        epilogue()
+        first = y.clone()
+        epilogue()
+        want = epilogue_yardstick(db.double(), None, bounds)()
+        out["epilogue"][what] = {
+            "ms": cuda_ms(epilogue, 100, warmup=5), "graph_ms": graph_ms(epilogue),
+            "max_abs_err": (first.double() - want).abs().max().item(),
+            "equal": torch.equal(first, y)}
     return out
 
 
 def compare_parent(parent: Path) -> int:
     """`python3 chip_smoke.py --parent DIR`, DIR an unpacked earlier
-    checkout (`git archive <commit> | tar -x -C DIR`): `conv_times` in that
+    checkout (`git archive <commit> | tar -x -C DIR`): `mel_times` in that
     checkout's package and in this one, each in its own process, in turns
-    (parent, this, this, parent); prints each conv call's ms and the fused
-    wav -> logits clips/s side by side, the card's name and power limit
-    first. Exits non-zero on any failed check."""
+    (parent, this, this, parent); prints the block path's and the
+    epilogue's times, errors and golden errors side by side, the card's
+    name and power limit first. Exits non-zero on any failed check."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1925,26 +2063,29 @@ def compare_parent(parent: Path) -> int:
         check(proc.returncode == 0, f"{which} ({root}):\n{proc.stdout[-4000:]}\n"
                                     f"{proc.stderr[-4000:]}")
         runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for call in runs["this"][0]["calls"]:
-        got = {w: [r["calls"][call] for r in rs] for w, rs in runs.items()}
-        print(f"--parent: [{card}] {call}: eager ms a call (CUDA events) this "
-              + " / ".join(f"{c['ms']:.4f}" for c in got["this"]) + ", parent "
-              + " / ".join(f"{c['ms']:.4f}" for c in got["parent"])
-              + "; device ms a call (CUDA graph) this "
-              + " / ".join(f"{c['graph_ms']:.4f}" for c in got["this"]) + ", parent "
-              + " / ".join(f"{c['graph_ms']:.4f}" for c in got["parent"])
-              + f"; max|kernel - plain| this {got['this'][0]['max_abs_err']:.3e}, parent "
-              f"{got['parent'][0]['max_abs_err']:.3e} (tol one bf16 ulp)")
-    serve = {w: [r["fused_wav_to_logits"] for r in rs] for w, rs in runs.items()}
-    print(f"--parent: [{card}] fused wav->logits at 2048/512, batch {BATCH}: this "
-          + " / ".join(f"{v:.1f}" for s in serve["this"] for v in s["clips_per_s"])
-          + " clips/s, parent "
-          + " / ".join(f"{v:.1f}" for s in serve["parent"] for v in s["clips_per_s"])
-          + " clips/s (host clock, 20 batches each); device ms a batch (CUDA graph) this "
-          + " / ".join(f"{s['device_ms']:.4f}" for s in serve["this"]) + ", parent "
-          + " / ".join(f"{s['device_ms']:.4f}" for s in serve["parent"])
-          + f"; logit sums {serve['this'][0]['logit_sum']:.4f} / "
-          f"{serve['parent'][0]['logit_sum']:.4f}")
+
+    def series(kind, shape, key, fmt=".4f"):
+        return {w: " / ".join(format(r[kind][shape][key], fmt) for r in rs)
+                for w, rs in runs.items()}
+
+    for shape in runs["this"][0]["block"]:
+        sp, ca = series("block", shape, "spectrum_ms"), series("block", shape, "call_ms")
+        er = series("block", shape, "max_abs_err", ".3e")
+        ga, gc = series("block", shape, "golden_all", ".3e"), series("block", shape, "golden_active", ".3e")
+        print(f"--parent: [{card}] block path {shape} x 5 s: spectrum kernel alone this "
+              f"{sp['this']}, parent {sp['parent']} ms; the whole call this {ca['this']}, parent "
+              f"{ca['parent']} ms; max|- plain f64| this {er['this']}, parent {er['parent']}; "
+              f"golden 5 s all cells this {ga['this']}, parent {ga['parent']}; active this "
+              f"{gc['this']}, parent {gc['parent']}")
+    for shape in runs["this"][0]["epilogue"]:
+        ms, gm = series("epilogue", shape, "ms"), series("epilogue", shape, "graph_ms")
+        er = series("epilogue", shape, "max_abs_err", ".3e")
+        eq = {w: [r["epilogue"][shape]["equal"] for r in rs] for w, rs in runs.items()}
+        print(f"--parent: [{card}] epilogue alone at {shape}: eager this {ms['this']}, parent "
+              f"{ms['parent']} ms; CUDA graph this {gm['this']}, parent {gm['parent']} ms; "
+              f"max|- yardstick f64| this {er['this']}, parent {er['parent']}; two calls "
+              f"bit-equal this {eq['this']}, parent {eq['parent']}")
+        check(all(eq["this"]) and all(eq["parent"]), f"epilogue bit-equal at {shape}")
     return 0
 
 
@@ -2050,7 +2191,8 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
         return all(fn.launches + fn.launches_masked == 0
                    for a, fn in wrappers.items() if a != alg)
 
-    launches = {"radix4dif_fused": 0, "radix2_fused": 0, "radix4dif_fused_1536": 0}
+    launches = {"radix4dif_fused": 0, "radix2_fused": 0, "radix4dif_fused_1536": 0,
+                "radix16dif_fused_16384": 0}
     clips = synth_clips(rng, BATCH)
     paths = []
     for i in range(3):
@@ -2058,7 +2200,7 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
         write_wav(paths[-1], clips[i, ::2], SR // 2)
     engines = {}
     for alg, n_fft, hop in (("radix4dif_fused", 512, 128), ("radix2_fused", 768, 256),
-                            ("radix4dif_fused", 1536, 384)):
+                            ("radix4dif_fused", 1536, 384), ("radix16dif_fused", 16384, 1024)):
         shape = dict(n_fft=n_fft, hop_length=hop)
         ckpt = seeded_checkpoint(tmp / f"serve_{n_fft}.ckpt", mixed_precision=True,
                                  head_scale=15.0, **shape)
@@ -2068,12 +2210,13 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
         one = engine.classify_wave(clips[0])
         files = engine.classify_files(paths)
         torch.cuda.synchronize()
+        read_epilogue(f"phase 17 serving at {n_fft}/{hop}")
         n = wrappers[alg].launches
         print(f"phase 17: serving at {n_fft}/{hop} ({engine.frontend._pallas_algorithm()}, "
               f"{engine.frontend.num_frames} frames): launches {alg} {n}")
         check(engine.frontend._pallas_algorithm() == alg and n > 0 and others_idle(alg),
               f"the {n_fft}/{hop} serving path ran {alg} and no other log-mel kernel")
-        launches[alg if n_fft != 1536 else "radix4dif_fused_1536"] += n
+        launches[alg if n_fft in (512, 768) else f"{alg}_{n_fft}"] += n
         check(probs.shape == (BATCH, 4) and bool(np.isfinite(probs).all()), "probs shape/finite")
         p1 = np.array(list(one["probabilities"].values()))
         err_one = float(np.abs(p1 - probs[0]).max())
@@ -2108,6 +2251,7 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
     history = quiet(train_entry.main, ["--config", str(cfg_path), "--data-path", str(corpus),
                                        "--epochs", "1"])
     torch.cuda.synchronize()
+    read_epilogue("phase 17 training")
     wall = time.perf_counter() - t0
     print(f"phase 17: [{card}] train.main, 1 epoch at n_fft 512 / hop 128 (8 s clips, 1001 "
           f"frames, batch 32 x 2, bf16): {wall:.1f} s with start-up; history "
@@ -2153,6 +2297,7 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
             "parallel", "--audio", str(recording), "--model", str(trained),
             "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis512")])
         torch.cuda.synchronize()
+        read_epilogue(f"phase 17 analyze at {duration:g} s")
         fe = eng.frontend
         n = k3.launches
         rows = csv_path.read_text().strip().splitlines()
@@ -2304,6 +2449,7 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
         outs = [MelFrontend(n_fft=nf, hop_length=hp, duration=5.0, backend="pallas",
                             pallas_algorithm=alg)(x[:8]) for nf, hp, alg in others]
     torch.cuda.synchronize()
+    read_epilogue("phase 18 wav -> logits at 1001/250")
     launches = {alg: wrappers[alg].launches for alg in B7_ALGORITHMS}
     print(f"phase 18: main path launches {launches}")
     check(all(n > 0 for n in launches.values()) and all(
@@ -2409,6 +2555,75 @@ def phase18_dft_gemm(dev, card: str, tmp: Path) -> dict[str, dict]:
                                      for r in results),
           "every parity row at 2048/512 within 1e-3 dB unrestricted")
     return rows
+
+
+# phase 19: the epilogue alone (`csrc/log_mel_epilogue.cuh`)
+def phase19_epilogue(dev, card: str) -> dict:
+    """The epilogue kernel alone at EPILOGUE_SHAPES, on the dB scratch the
+    spectrum kernel writes for synthetic clips, through
+    `mel_kernels.epilogue_only` (counted nowhere): its plan as the card's
+    library computes it (CTAs an example, mels a CTA, resident or re-read)
+    against `mel_kernels.epilogue_plan`; against `epilogue_reference` in
+    float64 in the main path's form (normalize, the shape's bounds) and with
+    top_db 80 beside it (tol 1e-4: the kernel's one f32 rounding of each
+    normalized cell, |cell| < 20, against statistics summed in f64); two
+    calls bit-equal; then timed eager (CUDA events, back to back) and as a
+    CUDA graph of 20 calls (the device's time, the host out of the way)
+    beside its bytes bound (the scratch read once, the output written once,
+    the bounds), the plain version and the yardstick. Returns the kernel-line
+    numbers at the serving shape, the error over all shapes."""
+    rng = np.random.default_rng(19)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row, errs = {}, []
+    for what, b, length, n_fft, hop, masked in EPILOGUE_SHAPES:
+        db, bounds = epilogue_scratch(rng, b, length, n_fft, hop, masked)
+        t = db.shape[1]
+        plan = mel_kernels.epilogue_device_plan(b, t, N_MELS, dev.index or 0)
+        mirror = mel_kernels.epilogue_plan(b, t, N_MELS, sms)
+        check(plan == {k: mirror[k] for k in plan}, f"the epilogue's plan at {what} is "
+                                                     f"`epilogue_plan`'s ({plan}, {mirror})")
+        source = mel_kernels.cuda_route("radix8dif_fused", n_fft)
+        out = torch.empty((b, N_MELS, t), dtype=torch.float32, device=dev)
+        line = []
+        for top_db in (None, 80.0):
+            def call(top_db=top_db):
+                mel_kernels.epilogue_only(source, db, out, top_db=top_db, normalize=True,
+                                          eps=1e-8, spec_mask_bounds=bounds)
+
+            call()
+            first = out.clone()
+            call()
+            equal = torch.equal(first, out)
+            want = mel_kernels.epilogue_reference(db.double(), top_db, True, 1e-8, bounds)
+            err = (first.double() - want).abs().max().item()
+            errs.append(err)
+            line.append(f"{'top_db 80 + ' if top_db else ''}normalize: max|- plain f64| "
+                        f"{err:.3e}, two calls bit-equal {equal}")
+            check(err <= 1e-4 and equal, f"the epilogue at {what}, top_db {top_db}")
+
+        def epilogue():
+            mel_kernels.epilogue_only(source, db, out, top_db=None, normalize=True, eps=1e-8,
+                                      spec_mask_bounds=bounds)
+
+        eager_ms = cuda_ms(epilogue, 200, warmup=5)
+        device_ms = graph_ms(epilogue)
+        plain_ms = cuda_ms(lambda: mel_kernels.epilogue_reference(db, None, True, 1e-8, bounds),
+                           50)
+        library_ms = cuda_ms(epilogue_yardstick(db, None, bounds), 50)
+        bound_ms = (8 * db.numel() + (16 * b if masked else 0)) / HBM_BYTES_PER_S * 1e3
+        print(f"phase 19: [{card}] epilogue alone at {what}, B={b} x {length / SR:g} s ({t} "
+              f"frames{', masked' if masked else ''}): {plan['cluster']} CTAs an example, "
+              f"{plan['band']} mels a CTA, {'resident' if plan['resident'] else 're-read'} "
+              f"({plan['smem_bytes']} shared bytes); " + "; ".join(line)
+              + f"; eager {eager_ms:.4f} ms, CUDA graph {device_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes), plain f32 {plain_ms:.4f} ms, yardstick "
+              f"{library_ms:.4f} ms")
+        if what.startswith("serving"):
+            row = {"ms": eager_ms, "graph_ms": device_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+        del db, out
+    row["max_abs_err"] = max(errs)
+    return row
 
 
 if __name__ == "__main__":

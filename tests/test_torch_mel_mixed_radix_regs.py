@@ -13,7 +13,7 @@ version in float64:
   lane's block of rows, the P-point FFT over L lanes, the twiddle W_N^{r k0},
   the odd factor's DFT as radix-3/5/7 butterflies) against `np.fft.fft`, the
   unpacking of the two frames' power and where the mel pass finds it;
-- the block path's bit-reversed load, radix-2 stages and direct combine;
+- (the block path is `tests/test_torch_mel_block_path.py`'s);
 - the in-kernel reflection of a frame pair, the pairs (never across
   examples, odd T) and the warp loop's groups;
 - a whole warp, pair by pair, against the plain version.
@@ -87,7 +87,8 @@ def plan(n_fft: int) -> tuple[int, list[int], str]:
     odd factor's prime factors in the order its DFT takes them, path).
     "registers" or "shared": a warp instance, its rows in registers where
     m * Q <= kRegValues complex values, else in the lane's block of shared
-    memory; "block": one block a frame pair, the direct per-bin combine."""
+    memory; "block": one block a frame pair
+    (tests/test_torch_mel_block_path.py)."""
     p = n_fft & -n_fft
     factors = prime_factors(n_fft // p)
     if n_fft not in WARP:
@@ -129,8 +130,9 @@ def test_warp_instance_is_its_n_fft(n_fft):
 def test_shared_memory_of_each_path():
     """A warp-path pair takes 8 N bytes (its staged pair, then Z, then the
     power in place) and G pairs a warp; a warp fits a Hopper block at every
-    warp n_fft. The block path's 12 N + 8 bytes a block fits up to the one
-    limit, 16,384."""
+    warp n_fft. The block path's block (`mel_kernels.block_plan`: the pair,
+    and Bluestein's workspace where it has one) fits up to the one limit,
+    16,384."""
     for n in WARP:
         assert 8 * n * geometry(n)[4] <= mk.HOPPER_SMEM_OPTIN
     for n in all_n_fft():
@@ -160,10 +162,11 @@ def exact_tables(n_fft: int):
 @pytest.mark.parametrize("n_fft", MODEL_N_FFT + (4036, 1200, 16384))
 def test_tables_match_their_definitions(n_fft):
     """The wrapper passes both paths' tables at every n_fft, as the launch
-    function picks the path: window, W_N^j, then the warp path's."""
+    function picks the path: the window, then the warp path's (the block
+    path's are `_block_tables`, tests/test_torch_mel_block_path.py)."""
     window, *tables = mk._twiddles_mixed_radix(n_fft, CPU)
     np.testing.assert_array_equal(window.numpy(), port_stft.hann_window(n_fft).numpy())
-    want = (np.exp(-2j * np.pi * np.arange(n_fft) / n_fft), *exact_tables(n_fft))
+    want = exact_tables(n_fft)
     assert len(tables) == len(want)
     for got, exact in zip(tables, want):
         assert got.dtype == torch.float32 and got.is_contiguous()
@@ -313,7 +316,7 @@ def test_warp_steps_match_fft(rng, n_fft):
     p, m, lanes, q, _ = geometry(n_fft)
     a, b = rng.standard_normal(n_fft), rng.standard_normal(n_fft)
     z = a + 1j * b
-    _, _, stages, rk, wm = mk._twiddles_mixed_radix(n_fft, CPU)
+    _, stages, rk, wm = mk._twiddles_mixed_radix(n_fft, CPU)
     y, sl, out, written, _ = warp_pair(z, n_fft, tuple(pairs(t) for t in (stages, rk, wm)))
     n = np.arange(lanes)[:, None] + lanes * np.arange(q)[None, :]
     bits = p.bit_length() - 1
@@ -365,33 +368,6 @@ def test_row_reads_are_free_of_bank_conflicts(n_fft):
             for half in (slice(0, 16), slice(16, 32)):
                 words = np.concatenate([2 * slot[half], 2 * slot[half] + 1])
                 assert len(set((words % 32).tolist())) == 32
-
-
-# --- the block path ------------------------------------------------------------
-
-@pytest.mark.parametrize("n_fft", [4036, 1200, 12288, 16384, 4, 36])
-def test_block_path_matches_fft(rng, n_fft):
-    """The block path: sample i = r + m n to row r at bitrev(n), radix-2 DIT
-    stages with W_{2 half}^pos = W_N^{pos N / 2 half} from the one table,
-    then Z[k] = sum_r W_N^{rk} Y_r[k mod P] by the direct combine."""
-    p = n_fft & -n_fft
-    m, bits = n_fft // p, p.bit_length() - 1
-    z = rng.standard_normal(n_fft) + 1j * rng.standard_normal(n_fft)
-    tw = pairs(mk._twiddles_mixed_radix(n_fft, CPU)[1])
-    y = np.empty((m, p), complex)
-    i = np.arange(n_fft)
-    y[i % m, bitrev(i // m, bits)] = z
-    half, stride = 1, n_fft // 2
-    while half < p:
-        for start in range(0, p, 2 * half):
-            pos = np.arange(half)
-            t = tw[pos * stride] * y[:, start + half + pos]
-            a = y[:, start + pos].copy()
-            y[:, start + pos], y[:, start + half + pos] = a + t, a - t
-        half, stride = 2 * half, stride // 2
-    k = np.arange(n_fft)
-    zk = sum(tw[(r * k) % n_fft] * y[r, k % p] for r in range(m))
-    np.testing.assert_allclose(zk, np.fft.fft(z), rtol=0, atol=1e-5 * np.abs(z).sum())
 
 
 # --- frames, pairs and the reflection ------------------------------------------
