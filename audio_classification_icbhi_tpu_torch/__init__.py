@@ -2,9 +2,10 @@
 audio_classification_icbhi_tpu for one NVIDIA H100.
 
 It carries the serving path, wav -> probabilities: the log-mel front end
-(hand-written Hopper kernels, `ops/mel_kernels.py`), LightweightCNN on
-cuDNN, checkpoints in the JAX package's msgpack format, the inference engine
-and its CLI; and the training path: augmentation (`ops/augment.py`), the
+(hand-written Hopper kernels, `ops/mel_kernels.py`), LightweightCNN and
+CompactResNet18 on cuDNN (`models/`, with the torch state_dict import),
+checkpoints in the JAX package's msgpack format, the inference engine and
+its CLI; and the training path: augmentation (`ops/augment.py`), the
 kernel's SpecAugment-masked form, the train and eval steps
 (`parallel/data_parallel.py`), the trainers (`training/`), the data pipeline
 (`data/`) and the `train` / `train_icbhi` entry points; and the

@@ -2,8 +2,9 @@
 
 Port of `audio_classification_icbhi_tpu/analyzers/engine.py`. Windows are
 cut on the host from the recording (a tail window zero-padded), bucketed to
-a multiple of 32, and window -> log-mel -> LightweightCNN -> softmax runs as
-one device pass over the whole bucket, followed by one copy to the host.
+a multiple of 32, and window -> log-mel -> classifier (LightweightCNN or
+CompactResNet18) -> softmax runs as one device pass over the whole bucket,
+followed by one copy to the host.
 
 Front end: `FlexibleMelFrontend`. For windows under 1 s it shortens the FFT
 (n_fft = min(1024, sr·dur/2), hop = n_fft/4), which at 16 kHz sends every
@@ -211,9 +212,10 @@ class AnalyzerEngine:
     @functools.cached_property
     def _apply_fn(self):
         """feats -> logits (`analyzers/engine.py:216-237` of the JAX
-        package): the fused conv-block kernels when `fused_cnn_enabled` says
-        so for this device and the analyzer's feature height (the kernels
-        take any width >= 4), else the model's forward."""
+        package): for a LightweightCNN, the fused conv-block kernels when
+        `fused_cnn_enabled` says so for this device and the analyzer's
+        feature height (the kernels take any width >= 4); else, and for a
+        CompactResNet18 always, the model's forward."""
         model = self.classifier.model
         if (isinstance(model, LightweightCNN)
                 and fused_cnn_enabled((1, self.frontend.n_mels, 4, 1), self.device)):

@@ -3,10 +3,12 @@
 Port of `audio_classification_icbhi_tpu/inference.py:30-220`. The model is
 rebuilt from the config embedded in the checkpoint, so consumers never need
 the original YAML. One wav -> probabilities path serves single clips and
-batches: the log-mel front end (the Hopper kernel on the card), then
-LightweightCNN in eval mode and a softmax. With `ICBHI_FUSED_CNN=1` on the
-card the CNN runs through the fused conv-block kernels
-(`models/fused_infer.py`), as the JAX engine takes its fused Pallas CNN.
+batches: the log-mel front end (the Hopper kernel on the card), then the
+checkpoint's classifier (LightweightCNN or CompactResNet18) in eval mode and
+a softmax. With `ICBHI_FUSED_CNN=1` on the card a LightweightCNN runs
+through the fused conv-block kernels (`models/fused_infer.py`), as the JAX
+engine takes its fused Pallas CNN; a CompactResNet18 runs its own forward
+there too, as in the JAX engine.
 """
 
 from __future__ import annotations

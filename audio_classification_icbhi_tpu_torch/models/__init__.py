@@ -1,11 +1,12 @@
-"""Classifiers as torch nn.Modules (LightweightCNN in this slice), and the
-opt-in fused inference forward."""
+"""Classifiers as torch nn.Modules (LightweightCNN and CompactResNet18), and
+the opt-in fused inference forward of LightweightCNN."""
 
 from audio_classification_icbhi_tpu_torch.models.cnn import (  # noqa: F401
     ConvBlock,
     LightweightCNN,
     count_parameters,
 )
+from audio_classification_icbhi_tpu_torch.models.resnet import CompactResNet  # noqa: F401
 from audio_classification_icbhi_tpu_torch.models.fused_infer import (  # noqa: F401
     fused_apply_supported,
     fused_cnn_enabled,

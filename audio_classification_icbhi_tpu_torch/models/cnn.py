@@ -41,6 +41,20 @@ def _conv_init(weight: torch.Tensor, generator: torch.Generator | None) -> None:
         weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
 
 
+def init_weights(model: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Both classifiers' init: He fan_out normal for convs, N(0, 0.01) for
+    dense kernels, zero dense biases, BN scale 1 / bias 0 / mean 0 / var 1."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            _conv_init(m.weight, generator)
+        elif isinstance(m, nn.Linear):
+            with torch.no_grad():
+                m.weight.normal_(0.0, 0.01, generator=generator)
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+
+
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
             per_channel: bool = False) -> torch.Tensor:
     """Inverted dropout with its mask drawn from `generator` (on x's
@@ -53,10 +67,43 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` on NCHW, shared by
+    both classifiers: it normalizes in float32 and returns x's dtype. Train
+    mode normalizes with the batch mean and biased variance and updates the
+    running statistics as `new = 0.9·old + 0.1·batch` from the biased
+    variance (torch's `momentum` 0.1 is flax's 0.9).
+
+    F.batch_norm updates the buffers in the same pass that computes the
+    batch statistics, but with the unbiased variance: it gives u =
+    m·old + (1−m)·var·n/(n−1) for m = 0.9. With c = (n−1)/n, c·u + m·(1−c)·old
+    is flax's m·old + (1−m)·var, without a second pass over x. The running
+    variance F.batch_norm updates is a copy, since autograd may keep the
+    tensors it was given and `old` is rescaled in place."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            out = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
+                               training=False, eps=self.eps)
+            return out.to(x.dtype)
+        unbiased = self.running_var.clone()
+        out = F.batch_norm(xf, self.running_mean, unbiased, self.weight, self.bias,
+                           training=True, momentum=self.momentum, eps=self.eps)
+        with torch.no_grad():
+            n = xf.numel() // xf.shape[1]
+            c = (n - 1) / n
+            m = 1.0 - self.momentum
+            self.running_var.mul_(m * (1.0 - c)).add_(unbiased, alpha=c)
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
+
+
 class ConvBlock(nn.Module):
     """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> channel dropout."""
-
-    momentum = 0.9  # flax's: weight of the old running value
 
     def __init__(self, in_channels: int, out_channels: int, drop_rate: float = 0.2,
                  dtype: torch.dtype = torch.float32):
@@ -64,36 +111,12 @@ class ConvBlock(nn.Module):
         self.dtype = dtype
         self.drop_rate = drop_rate
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.bn = BatchNorm(out_channels)
         self.pool = nn.MaxPool2d(2)  # floors odd sizes, as flax max_pool does
-
-    def batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """BatchNorm on float32 x. Train mode: batch statistics, with the
-        running statistics updated in place from the biased variance.
-
-        F.batch_norm updates the buffers in the same pass that computes the
-        batch statistics, but with the unbiased variance: it gives u =
-        m·old + (1−m)·var·n/(n−1). With c = (n−1)/n, c·u + m·(1−c)·old is
-        flax's m·old + (1−m)·var, without a second pass over x. The running
-        variance F.batch_norm updates is a copy, since autograd may keep the
-        tensors it was given and `old` is rescaled in place."""
-        bn = self.bn
-        if not self.training:
-            return bn(x)
-        unbiased = bn.running_var.clone()
-        out = F.batch_norm(x, bn.running_mean, unbiased, bn.weight, bn.bias, training=True,
-                           momentum=1.0 - self.momentum, eps=bn.eps)
-        with torch.no_grad():
-            n = x.numel() // x.shape[1]
-            c = (n - 1) / n
-            bn.running_var.mul_(self.momentum * (1.0 - c)).add_(unbiased, alpha=c)
-            bn.num_batches_tracked.add_(1)
-        return out
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), padding=1)
-        x = self.batch_norm(x.float()).to(self.dtype)
-        x = self.pool(F.relu(x))
+        x = self.pool(F.relu(self.bn(x)))
         if self.training:
             x = dropout(x, self.drop_rate, generator, per_channel=True)
         return x
@@ -116,17 +139,7 @@ class LightweightCNN(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """He fan_out normal for convs, N(0, 0.01) for dense kernels, zero
-        dense biases, BN scale 1 / bias 0 / mean 0 / var 1."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                _conv_init(m.weight, generator)
-            elif isinstance(m, nn.Linear):
-                with torch.no_grad():
-                    m.weight.normal_(0.0, 0.01, generator=generator)
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        init_weights(self, generator)
 
     def set_dropout(self, p: float) -> None:
         """Set every dropout rate: the blocks' and the head's (p = 0 makes

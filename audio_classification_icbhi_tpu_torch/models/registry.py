@@ -14,8 +14,15 @@ import torch
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
 
 
+def _architectures() -> dict:
+    from audio_classification_icbhi_tpu_torch.models.cnn import LightweightCNN
+    from audio_classification_icbhi_tpu_torch.models.resnet import CompactResNet
+
+    return {"cnn": LightweightCNN, "resnet": CompactResNet}
+
+
 def available_models() -> list[str]:
-    return ["cnn"]
+    return sorted(_architectures())
 
 
 def compute_dtype(config: dict[str, Any]) -> torch.dtype:
@@ -30,15 +37,11 @@ def build_model(config: dict[str, Any], dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None):
     """Build a model from a config dict (model section: architecture,
     num_classes, dropout), initialised from `generator`."""
-    from audio_classification_icbhi_tpu_torch.models.cnn import LightweightCNN
-
     arch = config["model"]["architecture"].lower()
-    if arch == "resnet":
-        raise NotImplementedError(
-            "CompactResNet18 is not ported yet (ROADMAP.md A9)")
-    if arch != "cnn":
+    classes = _architectures()
+    if arch not in classes:
         raise ValueError(f"Unknown model architecture: {arch!r} (have {available_models()})")
-    return LightweightCNN(
+    return classes[arch](
         num_classes=config["model"]["num_classes"],
         dropout=config["model"]["dropout"],
         dtype=compute_dtype(config) if dtype is None else dtype,

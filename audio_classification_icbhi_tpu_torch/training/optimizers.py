@@ -11,7 +11,10 @@ built to match:
 - anything else: SGD with momentum 0.9, no nesterov, L2 before the momentum.
 
 The learning rate is set on every param group by the train step from the
-per-epoch scheduler (`parallel/data_parallel.make_step_fns`).
+per-epoch scheduler (`parallel/data_parallel.make_step_fns`). Given
+`model.named_parameters()`, the optimizer keeps the names (torch's
+`param_names`), which the checkpoint bridge matches by
+(`models/weights.optax_from_opt_state`).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import Iterable
 import torch
 
 
-def build_optimizer(name: str, params: Iterable[torch.nn.Parameter],
+def build_optimizer(name: str,
+                    params: Iterable[torch.nn.Parameter] | Iterable[tuple[str, torch.nn.Parameter]],
                     weight_decay: float = 0.0) -> torch.optim.Optimizer:
     name = (name or "adam").lower()
     params = list(params)

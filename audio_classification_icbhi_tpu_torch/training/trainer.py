@@ -96,9 +96,11 @@ class Trainer:
         self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False)
 
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+        if config["model"].get("pretrained", False):
+            self._load_pretrained()
         self.model.to(self.device)
         self.optimizer_name = tcfg.get("optimizer", "adam")
-        self.optimizer = build_optimizer(self.optimizer_name, self.model.parameters(),
+        self.optimizer = build_optimizer(self.optimizer_name, self.model.named_parameters(),
                                          tcfg.get("weight_decay", 0.0))
         self.scheduler = build_scheduler(
             tcfg.get("scheduler"), self.learning_rate, self.epochs,
@@ -127,6 +129,35 @@ class Trainer:
         self.start_epoch = 0
 
     # ------------------------------------------------------------------ setup
+
+    def _load_pretrained(self) -> None:
+        """Initialize the model from a torch state_dict (model.pretrained +
+        model.pretrained_path), as the JAX trainer does
+        (`training/trainer.py:226-261` there): a reference checkpoint of
+        either architecture, or a plain torchvision resnet18 (3-channel stem
+        summed to 1, its 1000-class fc dropped). Keys the state_dict lacks
+        (the head, for a plain resnet18) keep the seeded init; a key the
+        model does not have raises."""
+        from audio_classification_icbhi_tpu_torch.models import torch_import
+
+        path = self.config["model"].get("pretrained_path")
+        if not path:
+            raise ValueError(
+                "model.pretrained=true requires model.pretrained_path (a "
+                "torch .pt/.pth state_dict; this environment has no network "
+                "egress to download torchvision weights)")
+        sd = torch_import.load_torch_checkpoint(path)
+        if self.config["model"]["architecture"].lower() == "cnn":
+            converted = torch_import.convert_lightweight_cnn(sd)
+        else:
+            converted = torch_import.convert_resnet18(sd, sum_rgb_stem=True)
+        unexpected = sorted(set(converted) - set(self.model.state_dict()))
+        if unexpected:
+            raise ValueError(f"{path}: keys the model does not have: {unexpected}")
+        self.model.load_state_dict(converted, strict=False)
+        params = dict(self.model.named_parameters())
+        n = sum(v.numel() for k, v in converted.items() if k in params)
+        print(f"Loaded pretrained weights from {path} ({n:,} params)")
 
     def _calculate_class_weights(self) -> np.ndarray:
         """Inverse-frequency weights; training.class_weighting=false gives

@@ -75,7 +75,7 @@ def load_config(config_path: str | None = None) -> dict[str, Any]:
 # Config options this port does not carry yet, with their ROADMAP.md rows.
 # Each raises NotImplementedError where it is asked for; none falls back.
 def check_ported_options(config: dict[str, Any]) -> None:
-    data, model, train = config.get("data", {}), config.get("model", {}), config.get("training", {})
+    data, train = config.get("data", {}), config.get("training", {})
     asked = [
         (data.get("cache_on_device", False),
          "data.cache_on_device (the device-resident waveform cache, ROADMAP.md A6)"),
@@ -83,10 +83,6 @@ def check_ported_options(config: dict[str, Any]) -> None:
          "training.precision: fp16 (the GradScaler loss-scale mode, ROADMAP.md A5)"),
         (train.get("checkpoint_format", "msgpack") == "orbax",
          "training.checkpoint_format: orbax (ROADMAP.md A4)"),
-        (model.get("pretrained", False),
-         "model.pretrained (torch state_dict import, ROADMAP.md A9)"),
-        (str(model.get("architecture", "cnn")).lower() == "resnet",
-         "model.architecture: resnet (CompactResNet18, ROADMAP.md A9)"),
         (train.get("steps_per_dispatch", 1) != 1,
          "training.steps_per_dispatch (the fused multi-step epoch, ROADMAP.md A6)"),
     ]

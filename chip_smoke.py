@@ -122,7 +122,21 @@ toolkit. Phases:
    and without top_db, two calls bit-equal, eager and as a CUDA graph beside
    its bytes bound, plain version and a PyTorch yardstick; and its launches
    over every main-path run above (one with each log-mel call), which the
-   kernels line reports.
+   kernels line reports;
+20. CompactResNet18 through the entry points (it has no kernel of its own;
+   its paths run rows 1 and 2): the serving engine on a seeded checkpoint
+   (BN statistics from 32 clips, head x15), bf16 logits within 2e-2 x max
+   |logit| and fp32 probabilities within 1e-4 of the CPU; wav -> logits at
+   128 x 5 s (device time as a CUDA graph, launches a batch) and
+   classify_wave beside LightweightCNN's; one epoch of `train.main --model
+   resnet` at config.yaml, a resumed epoch as a subprocess and the best
+   checkpoint served; the train step by CUDA events, its launches and its
+   device time as a CUDA graph, an epoch's wall time; an fp32 lr-1 SGD step
+   against the CPU by phase 8's bound; `analyze.main` at 0.5 s windows and
+   its warm time; `model.pretrained` from a torchvision-shaped resnet18
+   `.pt` (the stem the channel sum, the head at its seeded init); and
+   `ICBHI_FUSED_CNN=1`, under which rows 8-10 launch 0 times. Its row-1 and
+   row-2 launches add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -166,6 +180,7 @@ from audio_classification_icbhi_tpu_torch.data.synthetic import (
 from audio_classification_icbhi_tpu_torch.data.wavio import write_wav
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
 from audio_classification_icbhi_tpu_torch.models import (
+    CompactResNet,
     LightweightCNN,
     build_model,
     fused_kernels_available,
@@ -292,17 +307,39 @@ def edge_bounds(batch: int, n_frames: int, generator: torch.Generator) -> torch.
     return b
 
 
+# the dense kernels of both classifiers' heads (LightweightCNN's, CompactResNet's)
+HEAD_WEIGHTS = ("fc1.weight", "fc2.weight", "resnet.fc.1.weight", "resnet.fc.4.weight")
+
+
+def scaled_head(sd: dict, head_scale: float) -> dict:
+    """A state_dict with its head's dense kernels times head_scale: > 1
+    spreads the logits, so that they follow the network (at init they are
+    ~1e-2 whatever the features)."""
+    return {k: v * head_scale if k in HEAD_WEIGHTS else v for k, v in sd.items()}
+
+
 def seeded_checkpoint(path: Path, mixed_precision: bool, head_scale: float,
-                      duration: float = 5.0, **data) -> Path:
+                      duration: float = 5.0, architecture: str = "cnn",
+                      calibrate: np.ndarray | None = None, **data) -> Path:
     """A checkpoint at config's defaults (16 kHz, 128 mels, 2048/512; `data`
-    overrides the data section, e.g. n_fft and hop_length) with weights
-    from the config's seed; head_scale > 1 spreads the classes."""
+    overrides the data section, e.g. n_fft and hop_length) of `architecture`
+    with weights from the config's seed; head_scale > 1 spreads the classes.
+    `calibrate` (clips of `duration`) sets every BN's running statistics to
+    the batch statistics of one train-mode forward over them: with BN at
+    mean 0 / var 1 a seeded ResNet's logits barely follow its input."""
     cfg = load_config()
     cfg["data"].update(duration=duration, **data)
+    cfg["model"]["architecture"] = architecture
     cfg["training"]["mixed_precision"] = mixed_precision
-    sd = build_model(cfg, generator=set_seed(cfg["seed"])).state_dict()
-    for k in ("fc1.weight", "fc2.weight"):
-        sd[k] = sd[k] * head_scale
+    model = build_model(cfg, dtype=torch.float32, generator=set_seed(cfg["seed"]))
+    if calibrate is not None:
+        bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        for bn in bns:
+            bn.momentum = 1.0  # the running statistics become the batch's
+        with torch.no_grad():
+            model.train()(features_from_wavs(MelFrontend.from_config(cfg),
+                                             torch.from_numpy(calibrate)))
+    sd = scaled_head(model.state_dict(), head_scale)
     return save_checkpoint(path, {
         "epoch": 0, **flax_from_state_dict(sd), "val_loss": 0.0, "config": cfg})
 
@@ -516,6 +553,7 @@ def main() -> int:
         mixed = phase16_mixed_radix(dev, card)
         mixed_launches = phase17_entry_points(dev, rng, card, Path(tmp), corpus, recording)
         dft_gemm = phase18_dft_gemm(dev, card, Path(tmp))
+        resnet = phase20_resnet(dev, rng, card, Path(tmp), corpus, recording)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -524,8 +562,9 @@ def main() -> int:
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
-    training.update(launches=masked_launches, max_abs_err=masked_err)
-    r8.update(launches=r8_launches["inference"], max_abs_err=r8_err)
+    serving["launches"] += resnet["inference"]
+    training.update(launches=masked_launches + resnet["masked"], max_abs_err=masked_err)
+    r8.update(launches=r8_launches["inference"] + resnet["analyzer"], max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
 
     csrc = "audio_classification_icbhi_tpu_torch/csrc/"
@@ -622,6 +661,21 @@ def step_excess(got: dict, want: dict, names) -> float:
                for k in names)
 
 
+def one_train_step(model, init: dict, device, frontend, optimizer: str, lr: float, wavs, labels,
+                   cw, draws=None):
+    """One optimizer step (accumulation 2, weight decay 1e-4, dropout off)
+    of `model` loaded with `init`, on `device`; `draws` (augmentation on)
+    are the microbatches' injected augmentation draws. Returns (metrics as
+    floats, model, optimizer)."""
+    model.load_state_dict(init)
+    model.to(device).set_dropout(0.0)
+    opt = build_optimizer(optimizer, model.named_parameters(), 1e-4)
+    fns = make_step_fns(model, frontend, opt, accum_steps=2, augment=draws is not None)
+    m = fns.train_step(wavs.to(device), labels.to(device), cw.to(device), lr,
+                       draws=None if draws is None else [draws_to(d, device) for d in draws])
+    return {k: float(v) for k, v in m.items()}, model, opt
+
+
 def phase8_train_step(dev, rng) -> None:
     """One optimizer step on the card against the same step on the CPU, at
     config.yaml's front end and model with batch 8 x accumulation 2."""
@@ -636,17 +690,9 @@ def phase8_train_step(dev, rng) -> None:
     init = LightweightCNN(generator=torch.Generator().manual_seed(0)).state_dict()
 
     def step(device, optimizer, lr, augment, dtype=torch.float32, head=1.0, frontend=fe):
-        model = LightweightCNN(dtype=dtype)
-        # head > 1 spreads the logits, so that the loss depends on the
-        # features and not only on log(4) (the init's head is N(0, 0.01))
-        model.load_state_dict({k: v * head if k in ("fc1.weight", "fc2.weight") else v
-                               for k, v in init.items()})
-        model.to(device).set_dropout(0.0)
-        opt = build_optimizer(optimizer, model.parameters(), 1e-4)
-        fns = make_step_fns(model, frontend, opt, accum_steps=2, augment=augment)
-        m = fns.train_step(wavs.to(device), labels.to(device), cw.to(device), lr,
-                           draws=[draws_to(d, device) for d in draws] if augment else None)
-        return {k: float(v) for k, v in m.items()}, model, opt
+        return one_train_step(LightweightCNN(dtype=dtype), scaled_head(init, head), device,
+                              frontend, optimizer, lr, wavs, labels, cw,
+                              draws if augment else None)
 
     # (a) augmentation on, the config's Adam: the masked kernel on the card
     before = mel_kernels.log_mel_radix16dif_fused.launches_masked
@@ -2624,6 +2670,389 @@ def phase19_epilogue(dev, card: str) -> dict:
         del db, out
     row["max_abs_err"] = max(errs)
     return row
+
+
+# phase 20: CompactResNet18, the second classifier. It has no kernel of its
+# own (the JAX package leaves its convs, BN, pooling and head to XLA, the port
+# to cuDNN/ATen); its paths run rows 1 and 2 and the epilogue.
+
+def conv_out(n: int, k: int, s: int, p: int) -> int:
+    return (n + 2 * p - k) // s + 1
+
+
+def resnet_gflop(h: int, w: int, stage_sizes=(2, 2, 2, 2), classes: int = 4) -> float:
+    """Forward GFLOP of one (h, w) CompactResNet input: 2 per multiply-add
+    of every conv and dense layer, by the layer shapes."""
+    h, w = conv_out(h, 7, 2, 3), conv_out(w, 7, 2, 3)
+    flops = 2 * h * w * 64 * 49
+    h, w, cin = conv_out(h, 3, 2, 1), conv_out(w, 3, 2, 1), 64
+    for stage, blocks in enumerate(stage_sizes):
+        c = 64 * 2 ** stage
+        for block in range(blocks):
+            s = 2 if stage > 0 and block == 0 else 1
+            h, w = conv_out(h, 3, s, 1), conv_out(w, 3, s, 1)
+            flops += 2 * h * w * c * 9 * (cin + c)
+            if s != 1 or cin != c:  # the 1x1 projection
+                flops += 2 * h * w * c * cin
+            cin = c
+    return (flops + 2 * cin * 256 + 2 * 256 * classes) / 1e9
+
+
+def cnn_conv_gflop(h: int, w: int) -> float:
+    """Forward GFLOP of LightweightCNN's five 3x3 convs on one (h, w) input."""
+    chans, flops = (1, 32, 64, 128, 256, 256), 0
+    for i in range(5):
+        flops += 2 * h * w * chans[i] * chans[i + 1] * 9
+        h, w = h // 2, w // 2
+    return flops / 1e9
+
+
+def launch_calls(fn, steps: int) -> float:
+    """Kernel launches a call, counted on the host: the launch calls
+    (cudaLaunchKernel, cuLaunchKernel and their Ex forms) the profiler
+    records around `steps` calls (host records, which the device-record
+    losses of PERF.md §7 do not touch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key) / steps
+
+
+def torchvision_shaped_resnet18(seed: int) -> dict:
+    """A plain torchvision resnet18 state_dict from a seed: a 3-channel stem
+    and a 1000-class fc (an ImageNet checkpoint's shapes)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {k.removeprefix("resnet."): v for k, v in CompactResNet(generator=g).state_dict().items()
+          if not k.startswith("resnet.fc.")}
+    sd["conv1.weight"] = torch.randn((64, 3, 7, 7), generator=g) * 0.05
+    sd["fc.weight"] = torch.randn((1000, 512), generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path) -> dict[str, int]:
+    """CompactResNet18 through the entry points, with the launch counts
+    zeroed before and read after each main-path run: the serving engine on a
+    seeded bf16 checkpoint (x15 head) against the CPU, and an fp32 one; wav
+    -> logits at 128 x 5 s and classify_wave beside LightweightCNN's; one
+    epoch of `train.main --model resnet` at config.yaml on phase 9's corpus,
+    a resumed epoch in a subprocess and the best checkpoint served; the
+    train step's time, launches and device time, and an epoch's wall time;
+    an fp32 lr-1 SGD step on the card against the CPU; `analyze.main` at
+    0.5 s windows; `model.pretrained` from a torchvision-shaped .pt; and
+    `ICBHI_FUSED_CNN=1` on a ResNet (rows 8-10 launch 0 times). Returns rows
+    1 and 2's launches over these runs: row 1's inference form
+    ("inference"), its training form ("masked"), row 2's ("analyzer")."""
+    k16, k8 = mel_kernels.log_mel_radix16dif_fused, mel_kernels.log_mel_radix8dif_fused
+    launches = {"inference": 0, "masked": 0, "analyzer": 0}
+
+    # serving: a seeded checkpoint, its BN statistics from 32 clips and its
+    # head x15, so that the probabilities follow the network; the card
+    # against the CPU, bf16 and fp32 on the same weights
+    clips = synth_clips(rng, BATCH)
+    ckpt, ckpt32 = (seeded_checkpoint(tmp / f"resnet_{name}.ckpt", mixed_precision=mp,
+                                      head_scale=15.0, architecture="resnet",
+                                      calibrate=synth_clips(np.random.default_rng(20), 32))
+                    for name, mp in (("bf16", True), ("f32", False)))
+    zero_counts()
+    engine = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+    probs = engine.predict_probs(clips)
+    one = engine.classify_wave(clips[0])
+    torch.cuda.synchronize()
+    read_epilogue("phase 20 ResNet serving")
+    launches["inference"] += k16.launches
+    print(f"phase 20: ResNet serving path launches: log_mel_radix16dif_fused {k16.launches}")
+    check(isinstance(engine.model, CompactResNet) and k16.launches > 0,
+          "a CompactResNet served through row 1")
+    n = 32
+    x_n = torch.from_numpy(clips[:n])
+
+    @torch.inference_mode()
+    def logits_of(e):
+        return e.model(features_from_wavs(e.frontend, x_n.to(e.device))).float().cpu().numpy()
+
+    cpu, cpu32, gpu32 = (ClassifierEngine(c, batch_size=n, device=d)
+                         for c, d in ((ckpt, "cpu"), (ckpt32, "cpu"), (ckpt32, "cuda")))
+    err = float(np.abs(probs[:n] - cpu.predict_probs(clips[:n])).max())
+    err32 = float(np.abs(gpu32.predict_probs(clips[:n]) - cpu32.predict_probs(clips[:n])).max())
+    on_card, on_host, exact = logits_of(engine), logits_of(cpu), logits_of(cpu32)
+    scale = float(np.abs(exact).max())
+    gap, own = float(np.abs(on_card - on_host).max()), float(np.abs(on_host - exact).max())
+    err_one = float(np.abs(np.log(np.array(list(one["probabilities"].values()), np.float64))
+                           - np.log(probs[0].astype(np.float64))).max())
+    spread = float(np.abs(probs - probs.mean(axis=0)).max())
+    print(f"phase 20: ResNet predict_probs, seeded bf16, x15 head, {n} clips: max|cuda - cpu| "
+          f"{err:.3e} (the aim 5e-3); logits max|cuda - cpu| {gap:.3e} = "
+          f"{gap / scale:.2e} x max|logit| {scale:.3f} (tol 2e-2 x), the CPU's own bf16 against "
+          f"its fp32 {own:.3e}; classify_wave vs batch row, max|log p| {err_one:.3e} (tol 4e-2 "
+          f"x max|logit|); spread max|p - mean p| {spread:.3e} (>= 2e-2); classes "
+          f"{np.bincount(probs.argmax(-1), minlength=4).tolist()}; fp32 engine, same weights: "
+          f"max|cuda - cpu| {err32:.3e} (tol 1e-4)")
+    check(spread >= 2e-2 and scale >= 1.0, "the ResNet's probabilities follow the network")
+    check(gap <= 2e-2 * scale, "ResNet serving logits, cuda vs cpu (bf16)")
+    check(err_one <= 4e-2 * scale, "ResNet classify_wave vs its batch row (bf16)")
+    check(err32 <= 1e-4, "ResNet serving probabilities, cuda vs cpu (fp32)")
+
+    # wav -> logits at 128 x 5 s, bf16, beside LightweightCNN from the same
+    # call, in turns: host clock, then each step as a CUDA graph
+    cnn = ClassifierEngine(seeded_checkpoint(tmp / "cnn_x15.ckpt", mixed_precision=True,
+                                             head_scale=15.0), batch_size=BATCH, device="cuda")
+    engines = {"LightweightCNN": cnn, "ResNet18": engine}
+    gflop = {"LightweightCNN": cnn_conv_gflop(N_MELS, 157), "ResNet18": resnet_gflop(N_MELS, 157)}
+    x = torch.from_numpy(synth_clips(rng, BATCH)).to(dev)
+
+    def step(e):
+        return e.model(features_from_wavs(e.frontend, x))
+
+    host_ms = {name: [] for name in engines}
+    with torch.inference_mode():
+        for name in ("LightweightCNN", "ResNet18", "ResNet18", "LightweightCNN"):
+            for _ in range(3):
+                step(engines[name])
+            torch.cuda.synchronize()
+            reps = 20
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                logits = step(engines[name])
+            torch.cuda.synchronize()
+            host_ms[name].append((time.perf_counter() - t0) / reps * 1e3)
+            check(bool(torch.isfinite(logits).all()), "finite logits")
+        for name, e in engines.items():
+            device_ms = graph_ms(lambda: step(e), calls=1, iters=20)
+            per_batch = launch_calls(lambda: step(e), 2)
+            wall = float(np.mean(host_ms[name]))
+            work = gflop[name] * BATCH
+            print(f"phase 20: [{card}] {name} wav->logits batch {BATCH} x 5 s, bf16: "
+                  f"{', '.join(f'{BATCH / ms * 1e3:.1f}' for ms in host_ms[name])} clips/s by the "
+                  f"host clock ({wall:.3f} ms a batch); device {device_ms:.4f} ms a batch (a CUDA "
+                  f"graph of one step; busy {100 * device_ms / wall:.1f}%); {per_batch:.0f} "
+                  f"kernel launches a batch (host launch calls); "
+                  f"{'conv ' if name == 'LightweightCNN' else ''}work {work:.1f} GFLOP a batch "
+                  f"({gflop[name]:.3f} a clip): {work / device_ms:.1f} TFLOP/s over the whole "
+                  f"step, {100 * work / device_ms / (BF16_FLOPS / 1e12):.1f}% of 989")
+    for e in engines.values():
+        e.warmup_latency()
+    lat = {name: [] for name in engines}
+    for _ in range(50):
+        for name, e in engines.items():
+            t0 = time.perf_counter()
+            e.classify_wave(clips[1])
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ms in lat.items():
+        print(f"phase 20: [{card}] {name} classify_wave, batch 1, host clip in: median "
+              f"{np.median(ms):.3f} ms, p90 {np.percentile(ms, 90):.3f} ms over 50 calls")
+
+    # training through the entry point: one epoch at config.yaml
+    config = str(REPO / "config.yaml")
+    work_dir = tmp / "resnet_run"
+    work_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work_dir)  # config.yaml's checkpoint_dir and log_dir are relative
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        history = quiet(train_entry.main, ["--config", config, "--model", "resnet",
+                                           "--data-path", str(corpus), "--epochs", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_epilogue("phase 20 ResNet training")
+    finally:
+        os.chdir(cwd)
+    launches["masked"] += k16.launches_masked
+    launches["inference"] += k16.launches
+    print(f"phase 20: [{card}] train.main --model resnet, 1 epoch at config.yaml (8 s, batch "
+          f"32 x 2, bf16, adam, cosine, augmentation): {wall:.1f} s with start-up; history "
+          f"{json.dumps(history)}; launches masked {k16.launches_masked}, inference {k16.launches}")
+    check(k16.launches_masked > 0 and k16.launches > 0, "the ResNet training path ran row 1")
+    check(all(math.isfinite(v) for vals in history.values() for v in vals), "finite history")
+    best = work_dir / "checkpoints" / "best_model.ckpt"
+    check(best.exists(), "the ResNet's best_model.ckpt written")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    out = subprocess.run(
+        [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config", config,
+         "--model", "resnet", "--data-path", str(corpus), "--epochs", "2", "--resume", str(best)],
+        cwd=work_dir, env=env, capture_output=True, text=True, timeout=600)
+    print("phase 20: resumed ResNet run (subprocess), last lines:\n  "
+          + "\n  ".join(out.stdout.strip().splitlines()[-4:]))
+    check(out.returncode == 0, f"resumed ResNet training exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    check("Epoch 2/2" in out.stdout and "Resumed from" in out.stdout, "resumed to a second epoch")
+    served = ClassifierEngine(best, device="cuda")
+    clip, _ = ICBHIDataset(corpus, "test", served.config)[0]
+    result = served.classify_wave(clip)
+    p = np.array(list(result["probabilities"].values()))
+    print(f"phase 20: the ResNet's best checkpoint served on the card: "
+          f"{result['predicted_class']} {result['confidence']:.4f}")
+    check(isinstance(served.model, CompactResNet) and bool(np.isfinite(p).all())
+          and abs(p.sum() - 1.0) < 1e-4, "the trained ResNet served")
+
+    # the train step at config.yaml (32 x 2 x 8 s, bf16, Adam, augmentation),
+    # and one epoch's wall time as phase 10 takes LightweightCNN's
+    cfg = load_config(config)
+    cfg["model"]["architecture"] = "resnet"
+    fe = MelFrontend.from_config(cfg)
+    wavs = torch.from_numpy(synth_clips(rng, 64, TRAIN_CLIP).reshape(2, 32, TRAIN_CLIP)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, (2, 32))).long().to(dev)
+    cw = torch.ones(4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    fns = make_step_fns(model, fe, build_optimizer("adam", model.named_parameters(), 1e-4),
+                        accum_steps=2, augment=True)
+
+    def one_step():
+        return fns.train_step(wavs, labels, cw, 3e-3, generator=gen)
+
+    step_ms = cuda_ms(one_step, iters=10, warmup=3)
+    per_step = launch_calls(one_step, 2)
+    # the device's time a step with the host out of the way: the same step
+    # captured as a CUDA graph and replayed, with its draws injected, the
+    # dropout from the default generator and Adam's capturable form (graph
+    # capture refuses the host-side step count of the one above)
+    g_model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    g_opt = torch.optim.Adam(g_model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4, capturable=True)
+    g_fns = make_step_fns(g_model, fe, g_opt, accum_steps=2, augment=True)
+    draws = [aug.draw_augment(gen, 32, TRAIN_CLIP, N_MELS, fe.num_frames, dev) for _ in range(2)]
+    device_ms = graph_ms(lambda: g_fns.train_step(wavs, labels, cw, 3e-3, draws=draws),
+                         calls=1, iters=10)
+    train_gflop = 3 * resnet_gflop(N_MELS, 1 + TRAIN_CLIP // HOP) * 64
+    print(f"phase 20: [{card}] ResNet train step at config.yaml (32 x 2 x 8 s, bf16, adam, "
+          f"augmentation on): {step_ms:.3f} ms by CUDA events back to back "
+          f"({64 / step_ms * 1e3:.1f} clips/s); {per_step:.0f} kernel launches a step (host "
+          f"launch calls); device {device_ms:.3f} ms a step as a replayed CUDA graph (busy "
+          f"{100 * device_ms / step_ms:.1f}% of the eager step); about {train_gflop:.0f} GFLOP "
+          f"a step (3 x forward): {train_gflop / device_ms:.1f} TFLOP/s of device time")
+    del g_model, g_opt, g_fns
+    cfg["data"]["dataset_path"] = str(corpus)
+    cfg["training"].update(checkpoint_dir=str(tmp / "t20" / "ckpt"),
+                           log_dir=str(tmp / "t20" / "runs"))
+    trainer = quiet(Trainer, build_model(cfg), ICBHIDataset(corpus, "train", cfg, augment=True),
+                    ICBHIDataset(corpus, "val", cfg), cfg, device="cuda")
+    trainer.train_epoch(0)  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.validate(1)
+    val_s = time.perf_counter() - t0
+    print(f"phase 20: [{card}] ResNet train epoch, {len(trainer.train_dataset)} clips, "
+          f"{-(-len(trainer.train_loader) // trainer.accum_steps)} optimizer steps: "
+          f"{epoch_s * 1e3:.1f} ms wall; validation, {len(trainer.val_dataset)} clips: "
+          f"{val_s * 1e3:.1f} ms")
+    del trainer, fns, model, wavs
+    torch.cuda.empty_cache()
+
+    # one fp32 step without augmentation, SGD at lr 1, on the card and the
+    # CPU from the same weights (head x15): phase 8's loss and param bounds
+    # (a front end 1e-5 dB off sets the CPU's own floor)
+    a, b = 2, 8
+    wavs = torch.from_numpy(synth_clips(rng, a * b, TRAIN_CLIP).reshape(a, b, TRAIN_CLIP))
+    labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long()
+    cw = torch.tensor([1.0, 2.0, 0.5, 1.5])
+    init = scaled_head(CompactResNet(generator=torch.Generator().manual_seed(0)).state_dict(), 15.0)
+    perturbed = PerturbedPlainFrontend.from_config(cfg, eps=1e-5, seed=8)
+    (m_gpu, model_gpu, _), (m_cpu, model_cpu, _), (_, model_off, _) = (
+        one_train_step(CompactResNet(), init, device, frontend, "sgd", 1.0, wavs, labels, cw)
+        for device, frontend in ((dev, fe), ("cpu", fe), ("cpu", perturbed)))
+    sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
+    names = [k for k, _ in model_cpu.named_parameters()]
+    worst, floor = step_excess(sd_g, sd_c, names), step_excess(model_off.state_dict(), sd_c, names)
+    atol = max(2e-5, 2.0 * floor)
+    err_loss = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    print(f"phase 20: ResNet fp32 sgd step, lr 1, no augmentation, x15 head: loss cuda "
+          f"{m_gpu['loss']:.6f} cpu {m_cpu['loss']:.6f} (rel {err_loss:.2e}, tol 1e-4); params "
+          f"max(|d| - 2e-3|p|) = {worst:.2e} (tol {atol:.2e}: the CPU step with its log-mel "
+          f"1e-5 dB off moves {floor:.2e})")
+    check(err_loss <= 1e-4, "ResNet step loss, cuda vs cpu")
+    check(m_gpu["correct"] == m_cpu["correct"], "ResNet step correct count, cuda vs cpu")
+    for k in names:
+        check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=2e-3, atol=atol), f"ResNet param {k}")
+    for k in sd_c:
+        if "running" in k:
+            check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=1e-4, atol=1e-6), f"BN buffer {k}")
+    del model_gpu
+
+    # the analyzer with the trained ResNet at 0.5 s windows (row 2)
+    zero_counts()
+    eng, results, csv_path = quiet(analyze.main, [
+        "parallel", "--audio", str(recording), "--model", str(best),
+        "--segment-duration", "0.5", "--output-dir", str(tmp / "resnet_analysis")])
+    torch.cuda.synchronize()
+    read_epilogue("phase 20 ResNet analyzer")
+    launches["analyzer"] += k8.launches
+    check(k8.launches == 1 and k16.launches == 0 and len(results) == 60
+          and isinstance(eng.classifier.model, CompactResNet),
+          "the ResNet analyzer ran row 2 once over 60 windows")
+    for _ in range(3):
+        quiet(eng.analyze_audio, recording)
+    wall_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        quiet(eng.analyze_audio, recording)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    windows = quiet(lambda: eng.segment_audio(eng.load_audio(recording)))[0]
+    on_cpu = quiet(AnalyzerEngine, str(best), segment_duration=0.5, sample_rate=SR, device="cpu")
+    gpu_w, cpu_w = eng.predict_window_probs(windows), on_cpu.predict_window_probs(windows)
+    err_w = float(np.abs(gpu_w - cpu_w).max())
+    with torch.inference_mode():
+        gpu_l, cpu_l = (e._apply_fn(e.frontend(torch.from_numpy(windows).to(e.device))[..., None])
+                        .float().cpu().numpy() for e in (eng, on_cpu))
+    gap_w, scale_w = float(np.abs(gpu_l - cpu_l).max()), float(np.abs(cpu_l).max())
+    print(f"phase 20: [{card}] ResNet analyzer, 15 s recording at 0.5 s windows (60 -> bucket "
+          f"64), warm analyze_audio median {np.median(wall_ms):.3f} ms, p90 "
+          f"{np.percentile(wall_ms, 90):.3f} ms; max|cuda - cpu| probability {err_w:.3e} (the "
+          f"aim 5e-3), logits {gap_w:.3e} = {gap_w / scale_w:.2e} x max|logit| {scale_w:.3f} "
+          f"(tol 2e-2 x); classes {np.bincount(gpu_w.argmax(-1), minlength=4).tolist()}")
+    check(bool(np.isfinite(gpu_w).all()) and gap_w <= 2e-2 * scale_w,
+          "ResNet analyzer, cuda vs cpu (bf16)")
+
+    # model.pretrained from a torchvision-shaped resnet18 .pt
+    tv = torchvision_shaped_resnet18(seed=20)
+    torch.save(tv, tmp / "resnet18_imagenet_shaped.pt")
+    cfg["model"].update(pretrained=True, pretrained_path=str(tmp / "resnet18_imagenet_shaped.pt"))
+    trainer = quiet(Trainer, build_model(cfg), ICBHIDataset(corpus, "train", cfg),
+                    ICBHIDataset(corpus, "val", cfg), cfg, device="cuda")
+    got = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    seeded = CompactResNet(generator=torch.Generator().manual_seed(cfg["seed"])).state_dict()
+    stem = torch.equal(got["resnet.conv1.weight"], tv["conv1.weight"].sum(1, keepdim=True))
+    trunk = all(torch.equal(got[f"resnet.{k}"], v) for k, v in tv.items()
+                if k != "conv1.weight" and not k.startswith("fc."))
+    head = all(torch.equal(got[k], seeded[k]) for k in seeded if k.startswith("resnet.fc."))
+    print(f"phase 20: model.pretrained from a torchvision-shaped resnet18 .pt on the card: stem "
+          f"= channel sum {stem}, trunk loaded {trunk}, head kept its seeded init {head}")
+    check(stem and trunk and head and trainer.model.resnet.conv1.weight.is_cuda,
+          "model.pretrained imported the torchvision resnet18")
+    del trainer
+
+    # ICBHI_FUSED_CNN=1 on a ResNet: its own forward, rows 8-10 never launch
+    os.environ["ICBHI_FUSED_CNN"] = "1"
+    try:
+        zero_counts()
+        fused = ClassifierEngine(ckpt, batch_size=BATCH, device="cuda")
+        fused.predict_probs(clips)
+        fused.classify_wave(clips[0])
+        fused_ana = quiet(AnalyzerEngine, str(best), segment_duration=0.5, sample_rate=SR)
+        fused_ana.predict_window_probs(windows)
+        torch.cuda.synchronize()
+        conv = conv_counts()
+        read_epilogue("phase 20 ResNet with ICBHI_FUSED_CNN=1")
+        launches["inference"] += k16.launches
+        launches["analyzer"] += k8.launches
+    finally:
+        os.environ.pop("ICBHI_FUSED_CNN", None)
+    print(f"phase 20: ResNet serving and analyzer with ICBHI_FUSED_CNN=1: rows 8-10 launches "
+          f"{conv}; row 1 {k16.launches}, row 2 {k8.launches}")
+    check(all(v == 0 for v in conv.values()) and fused._apply_fn is fused.model
+          and fused_ana._apply_fn is fused_ana.classifier.model,
+          "a ResNet runs its own forward under ICBHI_FUSED_CNN=1")
+    print(f"phase 20: rows 1 and 2 over the ResNet runs: {launches}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -12,7 +12,12 @@ import torch
 
 from audio_classification_icbhi_tpu.models import LightweightCNN as FlaxCNN
 from audio_classification_icbhi_tpu.models.torch_import import convert_lightweight_cnn
-from audio_classification_icbhi_tpu_torch.models import LightweightCNN, build_model, count_parameters
+from audio_classification_icbhi_tpu_torch.models import (
+    CompactResNet,
+    LightweightCNN,
+    build_model,
+    count_parameters,
+)
 from audio_classification_icbhi_tpu_torch.models.weights import (
     flax_from_state_dict,
     state_dict_from_flax,
@@ -83,8 +88,7 @@ def test_registry_precision_and_errors():
     del cfg["training"]["precision"]
     assert build_model(cfg).dtype == torch.float32
     cfg["model"]["architecture"] = "resnet"
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(cfg)
+    assert isinstance(build_model(cfg), CompactResNet)
     cfg["model"]["architecture"] = "vit"
     with pytest.raises(ValueError, match="Unknown model architecture"):
         build_model(cfg)

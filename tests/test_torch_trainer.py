@@ -291,8 +291,6 @@ def test_train_entry_point_needs_a_gpu_by_default(corpus, monkeypatch):
     ("data", "cache_on_device", True, "A6"),
     ("training", "precision", "fp16", "A5"),
     ("training", "checkpoint_format", "orbax", "A4"),
-    ("model", "pretrained", True, "A9"),
-    ("model", "architecture", "resnet", "A9"),
     ("training", "steps_per_dispatch", 4, "A6"),
 ])
 def test_unported_options_raise(corpus, tmp_path, section, key, value, row):
@@ -303,3 +301,25 @@ def test_unported_options_raise(corpus, tmp_path, section, key, value, row):
     with pytest.raises(NotImplementedError, match=row):
         Trainer(build_model(small_config(tmp_path, "y")), ICBHIDataset(corpus, "train", config),
                 ICBHIDataset(corpus, "val", config), config, device="cpu")
+
+
+@pytest.mark.parametrize("key, value", [("pretrained", True), ("architecture", "resnet")])
+def test_model_options_now_run(corpus, tmp_path, key, value):
+    """model.pretrained (a seeded LightweightCNN .pt) and model.architecture:
+    resnet, which raised until CompactResNet18 was ported, each train one
+    epoch on the CPU and write a best checkpoint."""
+    config = small_config(tmp_path, key, epochs=1)
+    config["model"][key] = value
+    if key == "pretrained":
+        sd = build_model(config, generator=torch.Generator().manual_seed(9)).state_dict()
+        config["model"]["pretrained_path"] = str(tmp_path / "cnn.pt")
+        torch.save({"model_state_dict": sd}, config["model"]["pretrained_path"])
+    check_ported_options(config)
+    trainer = Trainer(build_model(config), ICBHIDataset(corpus, "train", config),
+                      ICBHIDataset(corpus, "val", config), config, device="cpu")
+    if key == "pretrained":
+        got = trainer.model.state_dict()
+        assert all(torch.equal(got[k], v) for k, v in sd.items())
+    history = trainer.train()
+    assert len(history["train_loss"]) == 1 and np.isfinite(history["train_loss"][0])
+    assert (tmp_path / key / "ckpt" / "best_model.ckpt").exists()
