@@ -12,8 +12,14 @@ kernel's SpecAugment-masked form, the train and eval steps
 sliding-window analyzers (`analyzers/`, the `analyze` entry point), whose
 sub-second windows run a second hand-written kernel, the radix-8 log-mel;
 and the opt-in fused CNN (`ICBHI_FUSED_CNN=1`, `models/fused_infer.py`),
-whose blocks 1-3 run hand-written conv-block kernels (`ops/conv_kernels.py`).
-Entry points run on the card unless the caller passes device="cpu".
+whose blocks 1-3 run hand-written conv-block kernels (`ops/conv_kernels.py`);
+and evaluation and the segmented ICBHI path: the segmenter
+(`preprocess_icbhi`), the per-cycle dataset, `train_segmented` and
+`train_icbhi` at config_segmented.yaml, the Validator, numpy metrics, and
+the `validate` / `validate_icbhi` entry points with their reports (PNGs
+through `utils/plotting`, which alone imports matplotlib, inside its
+functions). Entry points run on the card unless the caller passes
+device="cpu".
 
 Nothing heavy is imported here; the exports load on first access.
 """

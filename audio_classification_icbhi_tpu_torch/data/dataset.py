@@ -22,6 +22,8 @@ from audio_classification_icbhi_tpu_torch.data.annotations import recording_labe
 class ICBHIDataset:
     """Index of (wav_path, label) with host-side fixed-shape waveform loading."""
 
+    DEFAULT_DURATION = 5.0  # seconds, where the config's data section names none
+
     def __init__(self, root_dir: str | Path, split: str = "train",
                  config: dict[str, Any] | None = None, augment: bool = False):
         self.root_dir = Path(root_dir)
@@ -31,11 +33,13 @@ class ICBHIDataset:
         self.augment = augment and split == "train"
         data_cfg = (config or {}).get("data", {})
         self.sample_rate = int(data_cfg.get("sample_rate", 16000))
-        self.duration = float(data_cfg.get("duration", 5.0))
+        self.duration = float(data_cfg.get("duration", self.DEFAULT_DURATION))
         self.target_length = int(self.sample_rate * self.duration)
-        self.data = self._load_index()
+        self.data = self._load_index(data_cfg)
 
-    def _load_index(self) -> list[tuple[str, int]]:
+    def _load_index(self, data_cfg: dict[str, Any]) -> list[tuple[str, int]]:
+        """This split's (wav_path, label) list; the whole-recording split is
+        fixed at 70/15/15, whatever `data_cfg` says."""
         audio_dir = self.root_dir / "audio_and_txt_files"
         if not audio_dir.exists():
             raise ValueError(f"Audio directory not found: {audio_dir}")

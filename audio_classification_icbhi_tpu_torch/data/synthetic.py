@@ -6,7 +6,9 @@ same seed writes byte-identical files: breathing-noise base, crackle
 transients and wheeze tones (``hard=False``), or the non-separable regime
 with confusers, pink noise and per-patient profiles (``hard=True``). The
 ICBHI corpus is not in the repository, so tests and `chip_smoke.py` train on
-these. The segmented layout and the corpus fixture are ROADMAP.md A5/A6.
+these. Also ported: the segmented per-class layout
+(`generate_segmented_dataset`, `icbhi_class_counts`) and the corpus fixture
+shaped like the real download (`generate_icbhi_corpus_fixture`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from audio_classification_icbhi_tpu_torch.data.annotations import SEGMENT_DIR_NAMES
 from audio_classification_icbhi_tpu_torch.data.wavio import write_wav
 
 # Real ICBHI 2017 per-cycle class frequencies: normal 3642, crackles 1864,
@@ -309,6 +312,132 @@ def generate_icbhi_dataset(
         write_wav(audio_dir / f"{name}.wav", wav, sample_rate)
         lines = [f"{s:.3f}\t{e:.3f}\t{c}\t{w}" for s, e, c, w in cycles]
         (audio_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+    return Path(root)
+
+
+def generate_segmented_dataset(
+    root: str | Path,
+    per_class: int = 8,
+    duration: float = 2.5,
+    sample_rate: int = 16000,
+    seed: int = 0,
+    hard: bool = False,
+    class_counts: tuple[int, ...] | None = None,
+    coverage: str = "sparse",
+) -> Path:
+    """Write the segmented per-class layout: root/{normal,crackle,wheeze,both}/*.wav.
+
+    class_counts, when given, overrides per_class with explicit per-class
+    sizes (use with ICBHI_CLASS_PROBS to mirror the real skew); hard=True
+    uses the non-separable regime with per-clip duration jitter (±20%).
+    """
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    counts = class_counts if class_counts is not None else (per_class,) * len(SEGMENT_DIR_NAMES)
+    for label, dirname in enumerate(SEGMENT_DIR_NAMES):
+        d = root / dirname
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(counts[label]):
+            dur = duration * float(rng.uniform(0.8, 1.2)) if hard else duration
+            wav = synth_respiratory_cycle(rng, label, dur, sample_rate, hard=hard,
+                                          coverage=coverage)
+            write_wav(d / f"{101 + i}_1b1_Al_sc_Synth_seg{i:03d}_{dirname}.wav", wav, sample_rate)
+    return root
+
+
+def icbhi_class_counts(total: int) -> tuple[int, ...]:
+    """Per-class counts mirroring the real ICBHI skew, summing to ~total."""
+    return tuple(max(1, round(total * p)) for p in ICBHI_CLASS_PROBS)
+
+
+# Equipment/location/mode vocabulary of the real ICBHI 2017 download
+# (reference src/data/dataset.py:95-130 globs `audio_and_txt_files/*.wav`
+# named {patient}_{rec_idx}_{chest}_{mode}_{device}.wav). AKGC417L recorded
+# at 4 kHz, Litt3200 at 10 kHz (actually 4 kHz in the official set, 10 kHz
+# kept here to exercise a second resample ratio), Meditron/LittC2SE at
+# 44.1 kHz — the mixed native rates the loader must resample.
+_CORPUS_DEVICES = (
+    ("AKGC417L", 4000),
+    ("Litt3200", 10000),
+    ("Meditron", 44100),
+    ("LittC2SE", 44100),
+)
+_CHEST_LOCATIONS = ("Al", "Ar", "Pl", "Pr", "Ll", "Lr", "Tc")
+_ACQ_MODES = ("sc", "mc")
+
+
+def generate_icbhi_corpus_fixture(
+    root: str | Path,
+    num_recordings: int = 12,
+    cycles_per_recording: int = 4,
+    seed: int = 0,
+) -> Path:
+    """A fixture shaped like the REAL ICBHI 2017 download — deliberately
+    messier than generate_icbhi_dataset's clean synthetic layout — for
+    rehearsing the full --data path before the real corpus is available:
+
+    - mixed NATIVE sample rates per device (4 kHz / 10 kHz / 44.1 kHz),
+      exercising wavio.resample_np in the loaders and the segmenter;
+    - real filename grammar {patient}_{rec_idx}_{chest}_{mode}_{device}
+      with varying recording indices (1b1, 2p3, ...) across the device/
+      location/mode vocabulary;
+    - annotation edge cases found in the real files: CRLF line endings,
+      trailing whitespace and trailing tabs, float fields written with
+      varying precision, a zero-length cycle (start == end), a stray
+      header/comment line, and a file without a trailing newline.
+
+    Labels stay patient-consistent (cycle OR == recording label) so the
+    positional split remains patient-disjoint, like the official protocol.
+    """
+    rng = np.random.default_rng(seed)
+    audio_dir = Path(root) / "audio_and_txt_files"
+    audio_dir.mkdir(parents=True, exist_ok=True)
+
+    for r in range(num_recordings):
+        device, native_sr = _CORPUS_DEVICES[r % len(_CORPUS_DEVICES)]
+        chest = _CHEST_LOCATIONS[r % len(_CHEST_LOCATIONS)]
+        mode = _ACQ_MODES[r % len(_ACQ_MODES)]
+        rec_idx = f"{1 + r % 3}{'bp'[r % 2]}{1 + r % 4}"
+        name = f"{101 + r}_{rec_idx}_{chest}_{mode}_{device}"
+
+        rec_label = int(rng.integers(0, 4))
+        labels = _cycle_labels_for_recording(rng, rec_label, cycles_per_recording)
+        profile = make_patient_profile(rng)
+        audio, cycles, t0 = [], [], 0.0
+        for label in labels:
+            dur = float(rng.uniform(1.2, 3.5))
+            audio.append(
+                synth_respiratory_cycle(rng, label, dur, native_sr, hard=True,
+                                        profile=profile)
+            )
+            cycles.append((t0, t0 + dur,
+                           1 if label in (1, 3) else 0,
+                           1 if label in (2, 3) else 0))
+            t0 += dur
+        write_wav(audio_dir / f"{name}.wav", np.concatenate(audio), native_sr)
+
+        # annotation text with real-download grit, varying by recording
+        lines = []
+        if r % 5 == 0:
+            lines.append("Start\tEnd\tCrackles\tWheezes")  # stray header
+        for i, (s, e, c, w) in enumerate(cycles):
+            prec = (2, 3, 4)[i % 3]
+            row = f"{s:.{prec}f}\t{e:.{prec}f}\t{c}\t{w}"
+            if i % 3 == 1:
+                row += "\t"      # trailing tab (extra empty field)
+            if i % 4 == 2:
+                row += "   "     # trailing spaces
+            lines.append(row)
+        if r % 4 == 1:
+            # zero-length cycle (start == end): real files contain these;
+            # the segmenter must skip it via min_duration, not crash
+            t = cycles[-1][1]
+            lines.append(f"{t:.3f}\t{t:.3f}\t0\t0")
+        eol = "\r\n" if r % 2 == 0 else "\n"  # CRLF half the time
+        text = eol.join(lines)
+        if r % 3 != 2:
+            text += eol  # some files end without a newline
+        (audio_dir / f"{name}.txt").write_bytes(text.encode())
     return Path(root)
 
 

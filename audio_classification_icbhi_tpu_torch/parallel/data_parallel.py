@@ -124,8 +124,7 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         from `generator`. metrics = {loss: mean over the microbatches,
         correct, count, grad_norm}, 0-d tensors left on the device.
 
-    eval_step(wavs (B, L), labels (B,), mask (B,), class_weights)
-        -> (logits (B, C), loss_num, loss_den, correct) under the mask.
+    eval_step: `make_eval_step`'s.
 
     The step runs one flattened front end over all A·B examples, then the
     model once per microbatch, in order. `accum_mode` is accepted for the
@@ -173,6 +172,14 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
             "grad_norm": grad_norm,
         }
 
+    return TrainStepFns(train_step=train_step, eval_step=make_eval_step(model, frontend))
+
+
+def make_eval_step(model: torch.nn.Module, frontend: MelFrontend) -> Callable:
+    """eval_step(wavs (B, L), labels (B,), mask (B,), class_weights)
+    -> (logits (B, C), loss_num, loss_den, correct) under the mask, with the
+    model in eval mode and no gradient."""
+
     @torch.no_grad()
     def eval_step(wavs: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                   class_weights: torch.Tensor):
@@ -182,4 +189,21 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         correct = torch.sum((logits.argmax(-1) == labels).float() * mask)
         return logits, num, den, correct
 
-    return TrainStepFns(train_step=train_step, eval_step=eval_step)
+    return eval_step
+
+
+def eval_batches(eval_step: Callable, loader, batch_size: int, device: torch.device,
+                 class_weights: torch.Tensor):
+    """The eval pass over `loader`'s (wavs, labels) numpy batches, each
+    padded to batch_size with a mask (`pad_eval_batch`) and run through
+    `eval_step` on `device`. Yields, a batch, (logits of the real rows on
+    the device, loss_num, loss_den, correct, the real rows' labels as
+    numpy)."""
+    def to_device(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
+
+    for wavs, labels in loader:
+        wavs, labels, mask, b = pad_eval_batch(wavs, labels, batch_size)
+        logits, num, den, correct = eval_step(to_device(wavs), to_device(labels).long(),
+                                              to_device(mask), class_weights)
+        yield logits[:b], num, den, correct, labels[:b]

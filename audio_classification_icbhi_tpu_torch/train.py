@@ -5,10 +5,11 @@
 
 Port of the repository's `train.py:19-107`, with its flags --config --model
 --epochs --batch-size --learning-rate --device --data-path --resume
---profile. --device defaults to cuda and raises where there is no GPU; the
-CPU runs only when asked. The multi-host flags wait for ROADMAP.md A10 and
-the history plot for A7 (matplotlib): the entry prints where the best
-checkpoint went instead.
+--profile, and --no-plots. --device defaults to cuda and raises where there
+is no GPU; the CPU runs only when asked. The multi-host flags wait for
+ROADMAP.md A10. After training it prints where the best checkpoint went and
+draws training_history.png in the working directory (`utils/plotting`,
+which needs matplotlib) unless --no-plots.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import argparse
 from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
 from audio_classification_icbhi_tpu_torch.models import build_model
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
+from audio_classification_icbhi_tpu_torch.utils import plotting
 from audio_classification_icbhi_tpu_torch.utils.config import load_config, resolve_device, set_seed
 
 
@@ -34,6 +36,8 @@ def parse_args(argv=None):
     parser.add_argument("--resume", type=str, help="Checkpoint to resume from")
     parser.add_argument("--profile", type=str, metavar="DIR",
                         help="Write a torch.profiler trace of the first epoch to DIR")
+    parser.add_argument("--no-plots", action="store_true",
+                        help="Skip the training-history PNG (no matplotlib needed)")
     return parser.parse_args(argv)
 
 
@@ -70,16 +74,20 @@ def build_trainer(args, dataset_cls, trainer_cls, default_config: str):
     return trainer_cls(build_model(config), train_ds, val_ds, config, device=device)
 
 
-def report(trainer) -> None:
+def report(trainer, history: dict, args, plot, png: str, what: str = "Training history") -> None:
+    """Where the best checkpoint went, and the history drawn by `plot` (a
+    `utils/plotting` function) to `png` unless --no-plots."""
     print(f"Best checkpoint: {trainer.checkpoint_dir / 'best_model.ckpt'}")
-    print("The training-history plot is not ported yet (ROADMAP.md A7).")
+    if not args.no_plots:
+        plot(history, save_path=png)
+        print(f"{what} saved to {png}")
 
 
 def main(argv=None):
     args = parse_args(argv)
     trainer = build_trainer(args, ICBHIDataset, Trainer, "config.yaml")
     history = trainer.train(resume_from=args.resume, profile_dir=args.profile)
-    report(trainer)
+    report(trainer, history, args, plotting.plot_training_history, "training_history.png")
     return history
 
 

@@ -1,27 +1,31 @@
 """Train with best-model selection on the ICBHI score, on the GPU.
 
-    python -m audio_classification_icbhi_tpu_torch.train_icbhi --config config.yaml \
-        --data-path data/ICBHI [--device cuda|cpu]
+    python -m audio_classification_icbhi_tpu_torch.train_icbhi \
+        --data-path data/ICBHI_segmented [--config config_segmented.yaml] \
+        [--device cuda|cpu] [--no-plots]
 
 Port of the repository's `training_icbhi.py`: the flags and flow of
-`train.py`, with `TrainerWithICBHI`. It trains on the whole-recording
-dataset, the one this port carries; the segmented per-cycle dataset and its
-default `config_segmented.yaml` wait for ROADMAP.md A5, the ICBHI history
-plot for A7.
+`train.py`, with `TrainerWithICBHI` on the per-cycle
+`ICBHISegmentedDataset` (made by `preprocess_icbhi`) at
+config_segmented.yaml; it draws the 4-panel icbhi_training_history.png in
+the working directory unless --no-plots.
 """
 
 from __future__ import annotations
 
-from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
+from audio_classification_icbhi_tpu_torch.data.dataset_segmented import ICBHISegmentedDataset
 from audio_classification_icbhi_tpu_torch.train import build_trainer, parse_args, report
 from audio_classification_icbhi_tpu_torch.training.trainer_icbhi import TrainerWithICBHI
+from audio_classification_icbhi_tpu_torch.utils import plotting
 
 
 def main(argv=None):
     args = parse_args(argv)
-    trainer = build_trainer(args, ICBHIDataset, TrainerWithICBHI, "config.yaml")
+    trainer = build_trainer(args, ICBHISegmentedDataset, TrainerWithICBHI,
+                            "config_segmented.yaml")
     history = trainer.train(resume_from=args.resume, profile_dir=args.profile)
-    report(trainer)
+    report(trainer, history, args, plotting.plot_icbhi_history, "icbhi_training_history.png",
+           "ICBHI training history")
     return history
 
 

@@ -37,8 +37,8 @@ from audio_classification_icbhi_tpu_torch.models.weights import (
 )
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
+    eval_batches,
     make_step_fns,
-    pad_eval_batch,
 )
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.schedules import (
@@ -219,16 +219,14 @@ class Trainer:
         pass records (y_true, y_pred) in self.val_predictions."""
         sums, total = [], 0.0
         kept_preds, kept_labels = [], []
-        for wavs, labels in self.val_loader:
-            wavs, labels, mask, b = pad_eval_batch(wavs, labels, self.batch_size)
-            logits, num, den, corr = self.steps.eval_step(
-                self._to_device(wavs), self._to_device(labels).long(), self._to_device(mask),
-                self.class_weights)
+        for logits, num, den, corr, labels in eval_batches(
+                self.steps.eval_step, self.val_loader, self.batch_size, self.device,
+                self.class_weights):
             sums.append(torch.stack([num, den, corr]))
-            total += b
+            total += len(labels)
             if self.collect_predictions:
-                kept_preds.append(logits.argmax(-1)[:b])
-                kept_labels.append(labels[:b])
+                kept_preds.append(logits.argmax(-1))
+                kept_labels.append(labels)
         if self.collect_predictions:
             self.val_predictions = (
                 np.concatenate(kept_labels).astype(np.int64) if kept_labels

@@ -20,7 +20,10 @@ toolkit. Phases:
    plain version in float64, edge bounds included;
 8. one train step on the card against the same step on the CPU, at
    config.yaml's shapes with batch 8 x accumulation 2: same weights, same
-   injected augmentation draws, fp32, dropout inert; and a bf16 step;
+   injected augmentation draws, fp32, dropout inert; an lr-1 SGD step held
+   by `step_floor` (the CPU step rerun with its log-mel 1e-5 dB
+   off under seeds 0-7 sets each tensor's floor, as in the CPU tests); and
+   a bf16 step;
 9. the training path through its entry point: a synthetic corpus, 2 epochs
    of `audio_classification_icbhi_tpu_torch.train` at config.yaml with the
    launch counts read around it, a resumed third epoch as a subprocess, and
@@ -136,7 +139,25 @@ toolkit. Phases:
    its warm time; `model.pretrained` from a torchvision-shaped resnet18
    `.pt` (the stem the channel sum, the head at its seeded init); and
    `ICBHI_FUSED_CNN=1`, under which rows 8-10 launch 0 times. Its row-1 and
-   row-2 launches add to the kernels line.
+   row-2 launches add to the kernels line;
+21. the segmented ICBHI path through its entry points: the corpus fixture
+   (64 recordings x 6 cycles at native 4 / 10 / 44.1 kHz), `preprocess_icbhi`
+   (timed), one epoch of `train_icbhi` at config_segmented.yaml (3 s, 32 x
+   4, bf16; 3 optimizer steps) as a subprocess for LightweightCNN and the
+   ResNet, printing its launch counts, `validate_icbhi --no-plots` on each
+   best checkpoint and `validate --no-plots` on phase 9's checkpoint and
+   corpus (8 s at config.yaml), and for the ResNet (its softmax saturated
+   after 3 steps) on a copy with its BN statistics from 32 train cycles,
+   each held to the CPU port's Validator on the same checkpoint (bf16
+   y_prob within 5e-3, the ResNet's logits from the entry's own pass within
+   2e-2 x max |logit|, y_pred where the margin allows) and an fp32 copy of
+   the LightweightCNN checkpoint within 1e-4, every y_prob held but the
+   saturated one's spread across the clips >= 2e-2 (4x the bf16
+   tolerance), so that a model whose output ignores its input fails; each
+   report against the numpy metrics of the card's arrays; validation ms a split and clips/s, and the
+   train step at config_segmented.yaml by CUDA events and as a CUDA graph.
+   Its row-1 launches (94 frames at 3 s, 251 at 8 s) add to the kernels
+   line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -170,14 +191,19 @@ import torch.nn.functional as F
 
 from audio_classification_icbhi_tpu_torch import analyze
 from audio_classification_icbhi_tpu_torch import parity
+from audio_classification_icbhi_tpu_torch import preprocess_icbhi
 from audio_classification_icbhi_tpu_torch import train as train_entry
+from audio_classification_icbhi_tpu_torch import validate as validate_entry
+from audio_classification_icbhi_tpu_torch import validate_icbhi
 from audio_classification_icbhi_tpu_torch.analyzers import AnalyzerEngine
 from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
+from audio_classification_icbhi_tpu_torch.data.dataset_segmented import ICBHISegmentedDataset
 from audio_classification_icbhi_tpu_torch.data.synthetic import (
+    generate_icbhi_corpus_fixture,
     generate_icbhi_dataset,
     synth_respiratory_cycle,
 )
-from audio_classification_icbhi_tpu_torch.data.wavio import write_wav
+from audio_classification_icbhi_tpu_torch.data.wavio import read_wav, write_wav
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
 from audio_classification_icbhi_tpu_torch.models import (
     CompactResNet,
@@ -187,7 +213,10 @@ from audio_classification_icbhi_tpu_torch.models import (
     make_fused_apply,
 )
 from audio_classification_icbhi_tpu_torch.models import fused_infer
-from audio_classification_icbhi_tpu_torch.models.weights import flax_from_state_dict
+from audio_classification_icbhi_tpu_torch.models.weights import (
+    flax_from_state_dict,
+    state_dict_from_flax,
+)
 from audio_classification_icbhi_tpu_torch.ops import _build, mel_kernels
 from audio_classification_icbhi_tpu_torch.ops import conv_kernels as ck
 from audio_classification_icbhi_tpu_torch.ops import augment as aug
@@ -197,15 +226,26 @@ from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     features_from_wavs,
     make_step_fns,
 )
+from audio_classification_icbhi_tpu_torch.step_floor import (
+    param_arrays,
+    step_floor,
+    step_margins,
+)
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
-from audio_classification_icbhi_tpu_torch.utils.checkpoint import save_checkpoint
+from audio_classification_icbhi_tpu_torch.training.validation import Validator
+from audio_classification_icbhi_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from audio_classification_icbhi_tpu_torch.utils.config import load_config, set_seed
+from audio_classification_icbhi_tpu_torch.utils.icbhi_metrics import (
+    calculate_detailed_confusion_metrics,
+    calculate_icbhi_score,
+)
 
 REPO = Path(__file__).resolve().parent
 SR, N_FFT, HOP, N_MELS = 16000, 2048, 512, 128
 BATCH, CLIP = 128, 5 * SR
 TRAIN_CLIP = 8 * SR  # config.yaml: 8 s clips, batch 32 x accumulation 2
+SEG_CLIP = 3 * SR    # config_segmented.yaml: 3 s cycles, batch 32 x accumulation 4
 N_RECORDINGS = 920   # ICBHI's whole-recording split, 644/138/138: 10 optimizer steps an epoch
 N_FFT8, HOP8 = 1024, 256  # the analyzer's front end for windows under 1 s (radix-8 kernel)
 WINDOW = SR // 2          # the analyzer's 0.5 s window
@@ -333,15 +373,38 @@ def seeded_checkpoint(path: Path, mixed_precision: bool, head_scale: float,
     cfg["training"]["mixed_precision"] = mixed_precision
     model = build_model(cfg, dtype=torch.float32, generator=set_seed(cfg["seed"]))
     if calibrate is not None:
-        bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-        for bn in bns:
-            bn.momentum = 1.0  # the running statistics become the batch's
-        with torch.no_grad():
-            model.train()(features_from_wavs(MelFrontend.from_config(cfg),
-                                             torch.from_numpy(calibrate)))
+        calibrate_bn(model, cfg, calibrate)
     sd = scaled_head(model.state_dict(), head_scale)
     return save_checkpoint(path, {
         "epoch": 0, **flax_from_state_dict(sd), "val_loss": 0.0, "config": cfg})
+
+
+def calibrate_bn(model: torch.nn.Module, cfg: dict, clips: np.ndarray) -> None:
+    """Set every BN's running statistics of `model` (on the CPU) to the
+    batch statistics of one train-mode forward over `clips`."""
+    for bn in (m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+        bn.momentum = 1.0  # the running statistics become the batch's
+    with torch.no_grad():
+        model.train()(features_from_wavs(MelFrontend.from_config(cfg), torch.from_numpy(clips)))
+
+
+def checkpoint_copy(src: Path, path: Path, calibrate: np.ndarray | None = None,
+                    mixed_precision: bool | None = None) -> Path:
+    """The checkpoint at `src` with, given `calibrate` clips, its BN
+    statistics from one train-mode forward over them (`calibrate_bn`), and
+    `mixed_precision` in place of its config's. A ResNet trained for a few
+    steps has its eval-mode BN far from the batch statistics and its softmax
+    saturated; calibrated, its probabilities follow its input."""
+    ckpt = load_checkpoint(src)
+    cfg = ckpt["config"]
+    if mixed_precision is not None:
+        cfg["training"]["mixed_precision"] = mixed_precision
+    if calibrate is not None:
+        model = build_model(cfg, dtype=torch.float32)
+        model.load_state_dict(state_dict_from_flax(ckpt))
+        calibrate_bn(model, cfg, calibrate)
+        ckpt.update(flax_from_state_dict(model.state_dict()))
+    return save_checkpoint(path, ckpt)
 
 
 def draws_to(d: aug.AugmentDraws, device) -> aug.AugmentDraws:
@@ -405,9 +468,10 @@ def main() -> int:
     for name, (path, log) in built.items():
         print(f"phase 2: {name} -> {path}\n{log.strip()}")
 
-    # Phase 3: kernel vs its plain version (f64) on the card
+    # Phase 3: kernel vs its plain version (f64) on the card, at the serving
+    # shape, at validation's (batch 32 of 3 s and 8 s clips) and an odd one
     errs = []
-    for b, length in ((BATCH, CLIP), (3, 16320)):
+    for b, length in ((BATCH, CLIP), (32, SEG_CLIP), (32, TRAIN_CLIP), (3, 16320)):
         x = (0.1 * rng.standard_normal((b, length))).astype(np.float32)
         x[1] *= 20.0  # one loud example: the epilogue is per example
         xt = torch.from_numpy(x).to(dev)
@@ -554,6 +618,7 @@ def main() -> int:
         mixed_launches = phase17_entry_points(dev, rng, card, Path(tmp), corpus, recording)
         dft_gemm = phase18_dft_gemm(dev, card, Path(tmp))
         resnet = phase20_resnet(dev, rng, card, Path(tmp), corpus, recording)
+        segmented = phase21_segmented(dev, rng, card, Path(tmp), corpus)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -562,8 +627,9 @@ def main() -> int:
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
-    serving["launches"] += resnet["inference"]
-    training.update(launches=masked_launches + resnet["masked"], max_abs_err=masked_err)
+    serving["launches"] += resnet["inference"] + segmented["inference"]
+    training.update(launches=masked_launches + resnet["masked"] + segmented["masked"],
+                    max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"], max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
 
@@ -606,12 +672,13 @@ def wrapper_of(row_name: str) -> str:
 
 def phase7_masked_kernel(dev, rng) -> float:
     """The training form against its plain version in float64, at the train
-    step's front-end batch (64 x 8 s) and at an odd shape."""
+    steps' front-end batches (64 x 8 s at config.yaml, 128 x 3 s at
+    config_segmented.yaml) and at an odd shape."""
     errs = []
     gen = torch.Generator().manual_seed(7)
     before = mel_kernels.log_mel_radix16dif_fused.launches_masked
     calls = 0
-    for b, length in ((64, TRAIN_CLIP), (3, 16320)):
+    for b, length in ((64, TRAIN_CLIP), (128, SEG_CLIP), (3, 16320)):
         t = 1 + length // HOP
         x = (0.1 * rng.standard_normal((b, length))).astype(np.float32)
         x[1] *= 20.0
@@ -639,26 +706,16 @@ def phase7_masked_kernel(dev, rng) -> float:
     return max(errs)
 
 
-class PerturbedPlainFrontend(MelFrontend):
-    """The plain front end with seeded uniform noise of +-`eps` dB on its
-    log-mel: a front end as far from the function as the card's kernels
-    (phase 3: under 1e-5 dB from the float64 plain version), with another
-    rounding pattern. Phase 8 measures how far that alone moves a step."""
+def sgd_step_margins(gpu, cpu, cpu_step, frontend):
+    """`step_floor`'s margins of the card's step against the CPU's,
+    each given as (metrics, model); `cpu_step(frontend)` reruns the CPU step
+    and returns (metrics, model). Returns (margins, floor)."""
+    def result(run):
+        return param_arrays(run[1]), run[0]["grad_norm"]
 
-    def __init__(self, *args, eps: float, seed: int, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.eps, self.generator = eps, torch.Generator().manual_seed(seed)
-
-    def log_mel(self, waveform: torch.Tensor) -> torch.Tensor:
-        db = super().log_mel(waveform)
-        noise = torch.rand(db.shape, generator=self.generator, dtype=db.dtype)
-        return db + self.eps * (2.0 * noise - 1.0)
-
-
-def step_excess(got: dict, want: dict, names) -> float:
-    """max over parameters of |got - want| - 2e-3 |want|, elementwise."""
-    return max(((got[k].cpu() - want[k]).abs() - 2e-3 * want[k].abs()).max().item()
-               for k in names)
+    base = result(cpu)
+    floor = step_floor(lambda fe: result(cpu_step(fe)), frontend, base)
+    return step_margins(result(gpu), base, floor), floor
 
 
 def one_train_step(model, init: dict, device, frontend, optimizer: str, lr: float, wavs, labels,
@@ -721,22 +778,21 @@ def phase8_train_step(dev, rng) -> None:
     # (b) SGD at lr 1, no augmentation: the parameter change is the
     # accumulated, clipped gradient itself, held element by element. Max-pool
     # and ReLU make it jump where a feature moves by a rounding error, so the
-    # bound is twice what a front end 1e-5 dB off (PerturbedPlainFrontend)
-    # moves the CPU's own step on these inputs, and at least 2e-5
+    # bound is `step_floor`'s: twice what a front end 1e-5 dB off moves the
+    # CPU's own step (the maximum over eight seeds, at its largest in each
+    # parameter tensor)
     m_gpu, model_gpu, _ = step(dev, "sgd", 1.0, augment=False)
     m_cpu, model_cpu, _ = step("cpu", "sgd", 1.0, augment=False)
-    _, model_off, _ = step("cpu", "sgd", 1.0, augment=False, frontend=(
-        PerturbedPlainFrontend.from_config(cfg, eps=1e-5, seed=8)))
-    sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
-    names = [k for k, _ in model_cpu.named_parameters()]
-    worst, floor = step_excess(sd_g, sd_c, names), step_excess(model_off.state_dict(), sd_c, names)
-    atol = max(2e-5, 2.0 * floor)
+    margins, floor = sgd_step_margins(
+        (m_gpu, model_gpu), (m_cpu, model_cpu),
+        lambda frontend: step("cpu", "sgd", 1.0, augment=False, frontend=frontend)[:2], fe)
     print(f"phase 8: sgd step, lr 1: loss cuda {m_gpu['loss']:.6f} cpu {m_cpu['loss']:.6f}; "
-          f"params max(|d| - 2e-3|p|) = {worst:.2e} (tol {atol:.2e}: the CPU step with its "
-          f"log-mel 1e-5 dB off moves {floor:.2e})")
+          f"params worst |d| over its bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f} "
+          f"(bound 2e-3 |p| + max(2e-5, 2 floor); the CPU step with its log-mel 1e-5 dB off, "
+          f"seeds 0-7, moves params by up to {max(f.max() for f in floor.params):.2e}, the norm by "
+          f"{floor.grad_norm:.2e})")
     check(abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-4 * abs(m_cpu["loss"]), "sgd step loss")
-    for k in names:
-        check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=2e-3, atol=atol), f"param {k}")
+    check(margins.ok, f"sgd step params and grad norm, cuda vs cpu ({margins})")
 
     # (c) bf16 compute on the card
     m_bf, _, _ = step(dev, "adam", 3e-3, augment=True, dtype=torch.bfloat16)
@@ -760,7 +816,7 @@ def phase9_trainer(tmp: Path, card: str) -> tuple[Path, int]:
         zero_counts()
         t0 = time.perf_counter()
         history = train_entry.main(["--config", config, "--data-path", str(corpus),
-                                    "--epochs", "2"])
+                                    "--epochs", "2", "--no-plots"])
         torch.cuda.synchronize()
         read_epilogue("phase 9 training")
         wall = time.perf_counter() - t0
@@ -782,7 +838,7 @@ def phase9_trainer(tmp: Path, card: str) -> tuple[Path, int]:
         [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
     out = subprocess.run(
         [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config", config,
-         "--data-path", str(corpus), "--epochs", "3", "--resume", str(best)],
+         "--data-path", str(corpus), "--epochs", "3", "--resume", str(best), "--no-plots"],
         cwd=work, env=env, capture_output=True, text=True, timeout=600)
     print("phase 9: resumed run (subprocess), last lines:\n  "
           + "\n  ".join(out.stdout.strip().splitlines()[-6:]))
@@ -1030,7 +1086,7 @@ def phase12_analyzer(tmp: Path, corpus: Path, card: str) -> tuple[Path, dict[str
     zero_counts()
     t0 = time.perf_counter()
     history = quiet(train_entry.main, ["--config", str(cfg_path), "--data-path", str(corpus),
-                                       "--epochs", "1"])
+                                       "--epochs", "1", "--no-plots"])
     torch.cuda.synchronize()
     read_epilogue("phase 12 training")
     launches["masked"] = k8.launches_masked
@@ -2295,7 +2351,7 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
     zero_counts()
     t0 = time.perf_counter()
     history = quiet(train_entry.main, ["--config", str(cfg_path), "--data-path", str(corpus),
-                                       "--epochs", "1"])
+                                       "--epochs", "1", "--no-plots"])
     torch.cuda.synchronize()
     read_epilogue("phase 17 training")
     wall = time.perf_counter() - t0
@@ -2721,6 +2777,38 @@ def launch_calls(fn, steps: int) -> float:
     return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key) / steps
 
 
+def train_step_times(cfg: dict, dev, rng, a: int, b: int, clip: int) -> tuple[float, float, float]:
+    """The train step at `cfg`'s model, precision and front end on a x b
+    clips of `clip` samples (Adam, augmentation on, the draws and dropout
+    from a generator on the card). Returns its ms by CUDA events back to
+    back, its kernel launches (host launch calls), and its device ms as a
+    replayed CUDA graph: the same step with its draws injected, the dropout
+    from the default generator and Adam's capturable form (graph capture
+    refuses the host-side step count of the eager one)."""
+    fe = MelFrontend.from_config(cfg)
+    wavs = torch.from_numpy(synth_clips(rng, a * b, clip).reshape(a, b, clip)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long().to(dev)
+    cw = torch.ones(4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    fns = make_step_fns(model, fe, build_optimizer("adam", model.named_parameters(), 1e-4),
+                        accum_steps=a, augment=True)
+
+    def one_step():
+        return fns.train_step(wavs, labels, cw, 3e-3, generator=gen)
+
+    step_ms = cuda_ms(one_step, iters=10, warmup=3)
+    per_step = launch_calls(one_step, 2)
+    g_model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    g_opt = torch.optim.Adam(g_model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4, capturable=True)
+    g_fns = make_step_fns(g_model, fe, g_opt, accum_steps=a, augment=True)
+    draws = [aug.draw_augment(gen, b, clip, N_MELS, fe.num_frames, dev) for _ in range(a)]
+    device_ms = graph_ms(lambda: g_fns.train_step(wavs, labels, cw, 3e-3, draws=draws),
+                         calls=1, iters=10)
+    return step_ms, per_step, device_ms
+
+
 def torchvision_shaped_resnet18(seed: int) -> dict:
     """A plain torchvision resnet18 state_dict from a seed: a 3-channel stem
     and a 1000-class fc (an ImageNet checkpoint's shapes)."""
@@ -2855,7 +2943,8 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
         zero_counts()
         t0 = time.perf_counter()
         history = quiet(train_entry.main, ["--config", config, "--model", "resnet",
-                                           "--data-path", str(corpus), "--epochs", "1"])
+                                           "--data-path", str(corpus), "--epochs", "1",
+                                           "--no-plots"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         read_epilogue("phase 20 ResNet training")
@@ -2874,7 +2963,8 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
         [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
     out = subprocess.run(
         [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config", config,
-         "--model", "resnet", "--data-path", str(corpus), "--epochs", "2", "--resume", str(best)],
+         "--model", "resnet", "--data-path", str(corpus), "--epochs", "2", "--resume", str(best),
+         "--no-plots"],
         cwd=work_dir, env=env, capture_output=True, text=True, timeout=600)
     print("phase 20: resumed ResNet run (subprocess), last lines:\n  "
           + "\n  ".join(out.stdout.strip().splitlines()[-4:]))
@@ -2895,30 +2985,7 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
     cfg = load_config(config)
     cfg["model"]["architecture"] = "resnet"
     fe = MelFrontend.from_config(cfg)
-    wavs = torch.from_numpy(synth_clips(rng, 64, TRAIN_CLIP).reshape(2, 32, TRAIN_CLIP)).to(dev)
-    labels = torch.from_numpy(rng.integers(0, 4, (2, 32))).long().to(dev)
-    cw = torch.ones(4, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    fns = make_step_fns(model, fe, build_optimizer("adam", model.named_parameters(), 1e-4),
-                        accum_steps=2, augment=True)
-
-    def one_step():
-        return fns.train_step(wavs, labels, cw, 3e-3, generator=gen)
-
-    step_ms = cuda_ms(one_step, iters=10, warmup=3)
-    per_step = launch_calls(one_step, 2)
-    # the device's time a step with the host out of the way: the same step
-    # captured as a CUDA graph and replayed, with its draws injected, the
-    # dropout from the default generator and Adam's capturable form (graph
-    # capture refuses the host-side step count of the one above)
-    g_model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    g_opt = torch.optim.Adam(g_model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4, capturable=True)
-    g_fns = make_step_fns(g_model, fe, g_opt, accum_steps=2, augment=True)
-    draws = [aug.draw_augment(gen, 32, TRAIN_CLIP, N_MELS, fe.num_frames, dev) for _ in range(2)]
-    device_ms = graph_ms(lambda: g_fns.train_step(wavs, labels, cw, 3e-3, draws=draws),
-                         calls=1, iters=10)
+    step_ms, per_step, device_ms = train_step_times(cfg, dev, rng, 2, 32, TRAIN_CLIP)
     train_gflop = 3 * resnet_gflop(N_MELS, 1 + TRAIN_CLIP // HOP) * 64
     print(f"phase 20: [{card}] ResNet train step at config.yaml (32 x 2 x 8 s, bf16, adam, "
           f"augmentation on): {step_ms:.3f} ms by CUDA events back to back "
@@ -2926,7 +2993,6 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
           f"launch calls); device {device_ms:.3f} ms a step as a replayed CUDA graph (busy "
           f"{100 * device_ms / step_ms:.1f}% of the eager step); about {train_gflop:.0f} GFLOP "
           f"a step (3 x forward): {train_gflop / device_ms:.1f} TFLOP/s of device time")
-    del g_model, g_opt, g_fns
     cfg["data"]["dataset_path"] = str(corpus)
     cfg["training"].update(checkpoint_dir=str(tmp / "t20" / "ckpt"),
                            log_dir=str(tmp / "t20" / "runs"))
@@ -2945,7 +3011,7 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
           f"{-(-len(trainer.train_loader) // trainer.accum_steps)} optimizer steps: "
           f"{epoch_s * 1e3:.1f} ms wall; validation, {len(trainer.val_dataset)} clips: "
           f"{val_s * 1e3:.1f} ms")
-    del trainer, fns, model, wavs
+    del trainer
     torch.cuda.empty_cache()
 
     # one fp32 step without augmentation, SGD at lr 1, on the card and the
@@ -2956,23 +3022,23 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
     labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long()
     cw = torch.tensor([1.0, 2.0, 0.5, 1.5])
     init = scaled_head(CompactResNet(generator=torch.Generator().manual_seed(0)).state_dict(), 15.0)
-    perturbed = PerturbedPlainFrontend.from_config(cfg, eps=1e-5, seed=8)
-    (m_gpu, model_gpu, _), (m_cpu, model_cpu, _), (_, model_off, _) = (
-        one_train_step(CompactResNet(), init, device, frontend, "sgd", 1.0, wavs, labels, cw)
-        for device, frontend in ((dev, fe), ("cpu", fe), ("cpu", perturbed)))
+    (m_gpu, model_gpu, _), (m_cpu, model_cpu, _) = (
+        one_train_step(CompactResNet(), init, device, fe, "sgd", 1.0, wavs, labels, cw)
+        for device in (dev, "cpu"))
+    margins, floor = sgd_step_margins(
+        (m_gpu, model_gpu), (m_cpu, model_cpu),
+        lambda frontend: one_train_step(CompactResNet(), init, "cpu", frontend, "sgd", 1.0, wavs,
+                                        labels, cw)[:2], fe)
     sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
-    names = [k for k, _ in model_cpu.named_parameters()]
-    worst, floor = step_excess(sd_g, sd_c, names), step_excess(model_off.state_dict(), sd_c, names)
-    atol = max(2e-5, 2.0 * floor)
     err_loss = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     print(f"phase 20: ResNet fp32 sgd step, lr 1, no augmentation, x15 head: loss cuda "
           f"{m_gpu['loss']:.6f} cpu {m_cpu['loss']:.6f} (rel {err_loss:.2e}, tol 1e-4); params "
-          f"max(|d| - 2e-3|p|) = {worst:.2e} (tol {atol:.2e}: the CPU step with its log-mel "
-          f"1e-5 dB off moves {floor:.2e})")
+          f"worst |d| over its bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f} "
+          f"(phase 8's bound; the CPU step with its log-mel 1e-5 dB off, seeds 0-7, moves "
+          f"params by up to {max(f.max() for f in floor.params):.2e}, the norm by {floor.grad_norm:.2e})")
     check(err_loss <= 1e-4, "ResNet step loss, cuda vs cpu")
     check(m_gpu["correct"] == m_cpu["correct"], "ResNet step correct count, cuda vs cpu")
-    for k in names:
-        check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=2e-3, atol=atol), f"ResNet param {k}")
+    check(margins.ok, f"ResNet step params and grad norm, cuda vs cpu ({margins})")
     for k in sd_c:
         if "running" in k:
             check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=1e-4, atol=1e-6), f"BN buffer {k}")
@@ -3052,6 +3118,229 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
           and fused_ana._apply_fn is fused_ana.classifier.model,
           "a ResNet runs its own forward under ICBHI_FUSED_CNN=1")
     print(f"phase 20: rows 1 and 2 over the ResNet runs: {launches}")
+    return launches
+
+
+SEG_RECORDINGS, SEG_CYCLES = 64, 6  # 384 cycles: 288 / 48 / 48, 3 optimizer steps an epoch
+
+# A subprocess that trains through `train_icbhi.main` and prints, as its
+# last line, the launches its kernel wrappers counted.
+TRAIN_ICBHI_COUNTED = """
+import json, sys, torch
+from audio_classification_icbhi_tpu_torch import train_icbhi
+from audio_classification_icbhi_tpu_torch.ops import mel_kernels
+history = train_icbhi.main(sys.argv[1:])
+print(json.dumps({"history": history, "epilogue": mel_kernels.log_mel_epilogue.launches,
+                  "launches": {name: [fn.launches, fn.launches_masked]
+                               for name, fn in mel_kernels.WRAPPERS.items()}}))
+"""
+
+
+def held_to_cpu(what: str, card: tuple, cpu: tuple, tol: float, by_logits: bool = False,
+                spread_at_least: float | None = None) -> str:
+    """The card's Validator output (y_true, y_pred, y_prob, logits) against
+    the CPU port's on the same checkpoint and split: y_true equal; y_prob
+    within `tol`, or by_logits, the logits within tol x max |logit|; y_pred
+    equal wherever the CPU's top-2 margin of those exceeds the tolerance.
+    The CPU's y_prob spread across the clips, max|p - mean p|, is reported
+    and, given spread_at_least, held to it: a model whose output ignores its
+    input would pass the rest whatever the front end. Returns a line to
+    print."""
+    check(np.array_equal(card[0], cpu[0]), f"{what}: y_true, card vs cpu")
+    if by_logits:
+        got, want, kind = card[3], cpu[3], "logits"
+        tol = tol * float(np.abs(want).max())
+    else:
+        got, want, kind = card[2], cpu[2], "y_prob"
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > tol
+    spread = float(np.abs(cpu[2] - cpu[2].mean(axis=0)).max())
+    check(err <= tol, f"{what}: {kind} card vs cpu {err:.3e} (tol {tol:.3e})")
+    check(np.array_equal(card[1][clear], cpu[1][clear]), f"{what}: y_pred where the margin allows")
+    if spread_at_least is not None:
+        check(spread >= spread_at_least, f"{what}: y_prob spread {spread:.3e} across the clips "
+                                         f"(>= {spread_at_least:g})")
+    return (f"{what}: max|{kind} card - cpu| = {err:.3e} (tol {tol:.3e}); y_pred equal on "
+            f"{int(clear.sum())} of {len(clear)} clips clear of the tolerance; y_prob spread "
+            f"{spread:.3e}" + ("" if spread_at_least is None else f" (>= {spread_at_least:g})")
+            + f"; classes {np.bincount(cpu[1], minlength=cpu[2].shape[1]).tolist()}")
+
+
+def validate_on_card(entry, ckpt: Path, config: str, data: Path, out: Path, dev) -> tuple:
+    """`entry.main` (validate or validate_icbhi) on the card with --no-plots,
+    the launch counts zeroed before and read after. Returns (its result,
+    row 1's inference launches)."""
+    zero_counts()
+    res = quiet(entry.main, ["--model", str(ckpt), "--config", config, "--data-path", str(data),
+                             "--output-dir", str(out), "--no-plots", "--device", dev.type])
+    torch.cuda.synchronize()
+    read_epilogue(f"phase 21 {entry.__name__.rsplit('.', 1)[-1]} {out.name}")
+    k16 = mel_kernels.log_mel_radix16dif_fused
+    check(k16.launches > 0 and k16.launches_masked == 0, f"{out.name}: row 1 ran")
+    check(not list(out.glob("*.png")), "--no-plots drew nothing")
+    return res, k16.launches
+
+
+def phase21_segmented(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str, int]:
+    """The segmented ICBHI path through its entry points, with the launch
+    counts zeroed before and read after each main-path run: the corpus
+    fixture at native 4 / 10 / 44.1 kHz, `preprocess_icbhi`, one epoch of
+    `train_icbhi` at config_segmented.yaml as a subprocess for LightweightCNN
+    and then the ResNet, `validate_icbhi` on each best checkpoint and
+    `validate` on phase 9's whole-recording checkpoint (8 s at config.yaml),
+    and the ResNet's `checkpoint_copy` with calibrated BN, each held to the
+    CPU port's Validator on the same checkpoint, and each
+    report to the port's numpy metrics of the card's arrays; the timings of
+    validation, of the train step at config_segmented.yaml and of the
+    segmentation. Returns row 1's launches: its inference form
+    ("inference", 94 frames at 3 s and 251 at 8 s) and its training form
+    ("masked")."""
+    launches = {"inference": 0, "masked": 0}
+    seg_config = str(REPO / "config_segmented.yaml")
+    t0 = time.perf_counter()
+    raw = generate_icbhi_corpus_fixture(tmp / "icbhi_raw", num_recordings=SEG_RECORDINGS,
+                                        cycles_per_recording=SEG_CYCLES, seed=21)
+    fixture_s = time.perf_counter() - t0
+    segmented = tmp / "icbhi_segmented"
+    t0 = time.perf_counter()
+    stats = quiet(preprocess_icbhi.main, ["--input-dir", str(raw / "audio_and_txt_files"),
+                                          "--output-dir", str(segmented)])
+    seg_ms = (time.perf_counter() - t0) * 1e3
+    audio_s = sum(x.shape[-1] / sr for x, sr in map(read_wav, (raw / "audio_and_txt_files").glob("*.wav")))
+    print(f"phase 21: [{card}] corpus fixture, {SEG_RECORDINGS} recordings x {SEG_CYCLES} cycles "
+          f"at 4 / 10 / 44.1 kHz ({audio_s:.1f} s of audio): written in {fixture_s:.1f} s; "
+          f"preprocess_icbhi (host): {seg_ms:.1f} ms, {stats['total_segments']} segments, "
+          f"{stats['skipped_segments']} skipped ({audio_s / seg_ms * 1e3:.1f} s of audio a second)")
+    check(stats["processed_files"] == SEG_RECORDINGS
+          and stats["total_segments"] == SEG_RECORDINGS * SEG_CYCLES
+          and all(stats[c] > 0 for c in ("normal", "crackle", "wheeze", "both")),
+          "every cycle segmented into its class, the zero-length rows skipped")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    reports = tmp / "reports21"
+    arrays = {}
+    for arch in ("cnn", "resnet"):
+        work = tmp / f"t21_{arch}"
+        work.mkdir()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", TRAIN_ICBHI_COUNTED, "--config", seg_config, "--data-path",
+             str(segmented), "--epochs", "1", "--no-plots", "--model", arch, "--device", dev.type],
+            cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"train_icbhi --model {arch} exited {out.returncode}: "
+                                   f"{out.stderr[-2000:]}")
+        counted = json.loads(out.stdout.strip().splitlines()[-1])
+        row1 = counted["launches"]["radix16dif_fused"]
+        others = sum(sum(v) for k, v in counted["launches"].items() if k != "radix16dif_fused")
+        calls = sum(sum(v) for v in counted["launches"].values())
+        n_train = int(re.search(r"Training samples: (\d+)", out.stdout).group(1))
+        steps = -(-(n_train // 32) // 4)
+        print(f"phase 21: [{card}] train_icbhi --model {arch}, 1 epoch at config_segmented.yaml "
+              f"(3 s, batch 32 x 4, bf16), subprocess: {wall:.1f} s wall; {n_train} clips, "
+              f"{steps} optimizer steps; history {json.dumps(counted['history'])}; row 1 "
+              f"launches {row1[0]} (validation), {row1[1]} masked (training)")
+        check(steps >= 2, "at least two optimizer steps an epoch")
+        check(row1[0] > 0 and row1[1] > 0 and others == 0,
+              f"train_icbhi --model {arch} ran row 1, both forms, and no other log-mel kernel")
+        check(counted["epilogue"] == calls, "the epilogue launched with each log-mel call")
+        check(all(math.isfinite(v) for vals in counted["history"].values() for v in vals),
+              "finite history")
+        launches["inference"] += row1[0]
+        launches["masked"] += row1[1]
+        EPILOGUE_MAIN_PATH["launches"] += counted["epilogue"]
+        best = work / "checkpoints" / "best_model.ckpt"
+        check(best.exists(), f"the {arch} best checkpoint written")
+
+        # validate_icbhi on the card on the best checkpoint, and for the
+        # ResNet, whose softmax is saturated after 3 steps, on a copy with its
+        # BN statistics from 32 train cycles: each report against the numpy
+        # metrics of the card's arrays, the arrays against the CPU port's
+        # Validator, and every y_prob held spread >= 4x the bf16 tolerance
+        cfg = load_checkpoint(best)["config"]
+        test = quiet(ICBHISegmentedDataset, segmented, "test", cfg)
+        runs = [("as trained", best, arch == "cnn")]
+        if arch == "resnet":
+            clips = quiet(ICBHISegmentedDataset, segmented, "train", cfg).load_batch(range(32))[0]
+            runs.append(("BN calibrated", checkpoint_copy(best, work / "best_bn.ckpt", clips),
+                         True))
+        for name, ckpt_path, spread in runs:
+            out_dir = reports / f"{arch}_{name.split()[0]}"
+            res, ran = validate_on_card(validate_icbhi, ckpt_path, seg_config, segmented,
+                                        out_dir, dev)
+            launches["inference"] += ran
+            got = (res["y_true"], res["y_pred"], res["y_prob"], res["logits"])
+            scores = calculate_icbhi_score(got[0], got[1], class_names=validate_icbhi.SEG_CLASSES)
+            detailed = calculate_detailed_confusion_metrics(
+                got[0], got[1], class_names=validate_icbhi.SEG_CLASSES)
+            check((out_dir / "icbhi_results_test.txt").read_text()
+                  == validate_icbhi.results_text("test", scores, detailed),
+                  "icbhi_results_test.txt is the numpy metrics of the card's arrays")
+            engine = ClassifierEngine(ckpt_path, device="cpu")
+            cpu = Validator(engine.model, test, engine.config, device="cpu").validate(
+                with_logits=True)
+            print(f"phase 21: validate_icbhi {arch} {name} (test split, {len(got[0])} cycles, "
+                  f"row 1 {ran} launches): ICBHI score {scores['icbhi_score']:.4f}; "
+                  + held_to_cpu(f"{arch} bf16 {name}", got, cpu, 2e-2 if arch == "resnet" else 5e-3,
+                                by_logits=arch == "resnet", spread_at_least=2e-2 if spread else None))
+        arrays[arch] = (best, test)
+
+    # fp32: the LightweightCNN checkpoint with mixed precision off
+    best, test = arrays["cnn"]
+    f32 = checkpoint_copy(best, tmp / "t21_cnn_f32.ckpt", mixed_precision=False)
+    cfg32 = load_checkpoint(f32)["config"]
+    on = {d: Validator(ClassifierEngine(f32, device=d).model, test, cfg32, device=d
+                       ).validate(with_logits=True) for d in (dev, "cpu")}
+    print("phase 21: cnn fp32 Validator: "
+          + held_to_cpu("cnn fp32", on[dev], on["cpu"], 1e-4, spread_at_least=2e-2))
+
+    # validate on phase 9's whole-recording checkpoint and corpus (8 s)
+    best9 = tmp / "run" / "checkpoints" / "best_model.ckpt"
+    out_dir = reports / "whole"
+    res, ran = validate_on_card(validate_entry, best9, str(REPO / "config.yaml"), corpus,
+                                out_dir, dev)
+    launches["inference"] += ran
+    got = (res["y_true"], res["y_pred"], res["y_prob"], res["logits"])
+    engine = ClassifierEngine(best9, device="cpu")
+    text = (out_dir / "validation_test.json").read_text()
+    check(text == json.dumps(validate_entry.report(*got[:3], engine.config["classes"]), indent=2),
+          "validation_test.json is the numpy metrics of the card's arrays")
+    whole_test = quiet(ICBHIDataset, corpus, "test", engine.config)
+    cpu = Validator(engine.model, whole_test, engine.config, device="cpu").validate(
+        with_logits=True)
+    print(f"phase 21: validate, phase 9's checkpoint (test split, {len(got[0])} recordings x 8 s, "
+          f"row 1 {ran} launches): accuracy {json.loads(text)['metrics']['accuracy']:.4f}; "
+          + held_to_cpu("cnn bf16 whole", got, cpu, 5e-3, spread_at_least=2e-2))
+
+    # timings: a warm validation pass of each split by the host clock (it
+    # ends in the device->host copy), and the train step at config_segmented
+    for what, ckpt_path, ds in (("cnn segmented", *arrays["cnn"]),
+                                ("resnet segmented", *arrays["resnet"]),
+                                ("cnn whole 8 s", best9, whole_test)):
+        engine = ClassifierEngine(ckpt_path, device=dev)
+        validator = Validator(engine.model, ds, engine.config, device=dev)
+        validator.validate()
+        wall = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            validator.validate()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(wall))
+        print(f"phase 21: [{card}] Validator {what}, {len(ds)} clips at batch "
+              f"{validator.batch_size}: {ms:.1f} ms a split (median of 3; "
+              f"{min(wall):.1f}-{max(wall):.1f}), {len(ds) / ms * 1e3:.1f} clips/s")
+    cfg = load_config(seg_config)
+    for arch in ("cnn", "resnet"):
+        cfg["model"]["architecture"] = arch
+        step_ms, per_step, device_ms = train_step_times(cfg, dev, rng, 4, 32, SEG_CLIP)
+        print(f"phase 21: [{card}] {arch} train step at config_segmented.yaml (32 x 4 x 3 s, bf16, "
+              f"adam, augmentation on): {step_ms:.3f} ms by CUDA events back to back "
+              f"({128 / step_ms * 1e3:.1f} clips/s); {per_step:.0f} kernel launches a step; "
+              f"device {device_ms:.3f} ms a step as a replayed CUDA graph (busy "
+              f"{100 * device_ms / step_ms:.1f}% of the eager step)")
+    print(f"phase 21: row 1 launches over the phase's main paths {launches}")
     return launches
 
 

@@ -8,6 +8,7 @@ fp32, with augmentation off and dropout inert (an interceptor on the JAX
 side, rate 0 on the port's), so their histories must agree.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -272,13 +273,17 @@ def test_train_entry_point_runs_on_cpu(corpus, tmp_path):
 
     config = small_config(tmp_path, "entry", epochs=1)
     (tmp_path / "c.yaml").write_text(yaml.safe_dump(config))
+    # the history PNG lands in the working directory, as the JAX script's
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run(
         [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config",
          str(tmp_path / "c.yaml"), "--data-path", str(corpus), "--device", "cpu", "--epochs", "1"],
-        capture_output=True, text=True, timeout=300, cwd=str(REPO))
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path), env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "Training completed" in out.stdout
     assert (tmp_path / "entry" / "ckpt" / "best_model.ckpt").exists()
+    assert "Training history saved to training_history.png" in out.stdout
+    assert (tmp_path / "training_history.png").stat().st_size > 5000
 
 
 def test_train_entry_point_needs_a_gpu_by_default(corpus, monkeypatch):
