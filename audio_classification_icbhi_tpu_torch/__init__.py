@@ -18,8 +18,12 @@ and evaluation and the segmented ICBHI path: the segmenter
 `train_icbhi` at config_segmented.yaml, the Validator, numpy metrics, and
 the `validate` / `validate_icbhi` entry points with their reports (PNGs
 through `utils/plotting`, which alone imports matplotlib, inside its
-functions). Entry points run on the card unless the caller passes
-device="cpu".
+functions); and data-parallel training over ranks, one a device
+(`parallel/mesh.py`: NCCL between GPUs, gloo between CPU processes; the
+sharded step, cross-rank BatchNorm, `train --num-devices / --multihost`,
+the sharded Validator and analyzer), and the fp16 loss-scale mode
+(`training.precision: fp16`, also through the LegacyTrainer). Entry points
+run on the card unless the caller passes device="cpu".
 
 Nothing heavy is imported here; the exports load on first access.
 """

@@ -6,6 +6,13 @@ a multiple of 32, and window -> log-mel -> classifier (LightweightCNN or
 CompactResNet18) -> softmax runs as one device pass over the whole bucket,
 followed by one copy to the host.
 
+With `devices`, N devices of this process (the JAX engine's single-process
+`mesh`, `:124-140`, `:238-256`), the bucket is a multiple of lcm(32, N),
+split into N equal chunks, one a device, each through its own replica of
+the model; the chunks' probabilities are concatenated in device order. As
+in the JAX engine's mesh path, this path always runs the model's forward, never
+the opt-in fused conv blocks.
+
 Front end: `FlexibleMelFrontend`. For windows under 1 s it shortens the FFT
 (n_fft = min(1024, sr·dur/2), hop = n_fft/4), which at 16 kHz sends every
 window from 0.128 s up to 1 s to `radix8dif_fused`; 1 s windows at
@@ -22,11 +29,13 @@ Detection semantics (both reference variants):
 
 from __future__ import annotations
 
+import copy
 import csv
 import functools
 import math
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -126,13 +135,11 @@ class AnalyzerEngine:
         wheeze_threshold: float = 0.3,
         mode: str = "threshold",
         max_duration: float | None = 15.0,
-        mesh=None,
+        devices: Sequence[str | torch.device] | None = None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding the windows over a device mesh is not ported yet "
-                "(ROADMAP.md A10); pass mesh=None")
+        """`devices` splits each bucket of windows over them (the JAX
+        engine's `mesh`); with them, `device` is not read."""
         if mode not in ("threshold", "legacy"):
             raise ValueError(f"unknown analyzer mode {mode!r} "
                              "(expected 'threshold' or 'legacy')")
@@ -140,7 +147,9 @@ class AnalyzerEngine:
             # overlap=1.0 clamps the hop to one sample: a 15 s recording
             # becomes ~224k windows
             raise ValueError(f"overlap must be in [0, 1), got {overlap}")
-        self.classifier = ClassifierEngine(model_path, device=device)
+        self.devices = None if devices is None else [torch.device(d) for d in devices]
+        self.classifier = ClassifierEngine(
+            model_path, device=self.devices[0] if self.devices is not None else device)
         self.device = self.classifier.device
         dcfg = self.classifier.config["data"]
         # None = the checkpoint's training sample rate; the analyzer entry
@@ -212,32 +221,48 @@ class AnalyzerEngine:
     @functools.cached_property
     def _apply_fn(self):
         """feats -> logits (`analyzers/engine.py:216-237` of the JAX
-        package): for a LightweightCNN, the fused conv-block kernels when
-        `fused_cnn_enabled` says so for this device and the analyzer's
-        feature height (the kernels take any width >= 4); else, and for a
-        CompactResNet18 always, the model's forward."""
+        package): for a LightweightCNN on one device, the fused conv-block
+        kernels when `fused_cnn_enabled` says so for this device and the
+        analyzer's feature height (the kernels take any width >= 4); else,
+        and for a CompactResNet18 always, the model's forward."""
         model = self.classifier.model
-        if (isinstance(model, LightweightCNN)
+        if (self.devices is None and isinstance(model, LightweightCNN)
                 and fused_cnn_enabled((1, self.frontend.n_mels, 4, 1), self.device)):
             return make_fused_apply(model, self.device)
         return model
 
+    @functools.cached_property
+    def _replicas(self) -> list[tuple[torch.device, torch.nn.Module]]:
+        """(device, model) for each of `devices`: the classifier's own
+        model on the first, copies on the others."""
+        model = self.classifier.model
+        return [(d, model if i == 0 else copy.deepcopy(model).to(d))
+                for i, d in enumerate(self.devices)]
+
     def _window_bucket(self, w: int) -> int:
-        return max(32, int(math.ceil(w / 32)) * 32)
+        quantum = 32 if self.devices is None else math.lcm(32, len(self.devices))
+        return max(quantum, int(math.ceil(w / quantum)) * quantum)
 
     @torch.inference_mode()
     def predict_window_probs(self, windows: np.ndarray) -> np.ndarray:
         """(W, seg) windows -> (W, 4) probabilities: the windows padded to
-        their bucket (a multiple of 32, so recordings of many lengths share
-        a few shapes), one device pass, one copy to the host."""
+        their bucket (a multiple of 32, and of the number of `devices`, so
+        recordings of many lengths share a few shapes), one device pass (a
+        chunk on each of `devices`, all launched before any result is
+        read), one copy to the host."""
         w = windows.shape[0]
         bucket = self._window_bucket(w)
         if w < bucket:
             windows = np.concatenate(
                 [windows, np.zeros((bucket - w,) + windows.shape[1:], windows.dtype)])
-        x = torch.as_tensor(windows, dtype=torch.float32).to(self.device)
-        logits = self._apply_fn(self.frontend(x)[..., None])
-        return torch.softmax(logits.float(), dim=-1).cpu().numpy()[:w]
+        x = torch.as_tensor(windows, dtype=torch.float32)
+        if self.devices is None:
+            logits = self._apply_fn(self.frontend(x.to(self.device))[..., None])
+            return torch.softmax(logits.float(), dim=-1).cpu().numpy()[:w]
+        chunks = x.chunk(len(self._replicas))
+        probs = [torch.softmax(model(self.frontend(c.to(d))[..., None]).float(), dim=-1)
+                 for (d, model), c in zip(self._replicas, chunks)]
+        return torch.cat([p.cpu() for p in probs]).numpy()[:w]
 
     # ---------------------------------------------------------------- results
 

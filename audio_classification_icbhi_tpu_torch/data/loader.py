@@ -5,6 +5,10 @@ worker threads decode wav files into numpy batches while the device
 computes, behind a lookahead window on batch indices. The shuffle is
 `np.random.default_rng(seed + epoch)`, so the port and the JAX package see
 the same batches in the same order.
+
+On a data mesh of several ranks each rank reads the same seeded batches but
+decodes only its own rows of each (`shard`), where the JAX package decodes
+a host's whole batch once for all of its devices.
 """
 
 from __future__ import annotations
@@ -20,6 +24,11 @@ class BatchLoader:
 
     shuffle/drop_last semantics match the reference train/val loaders
     (trainer_fixed.py:35-50). Shuffling is seeded per epoch for determinism.
+
+    `shard` = (rank, ranks): a batch's rows are cut into `ranks` parts of
+    batch_size / ranks rows, and the waveforms are decoded for part `rank`
+    alone (a short last batch leaves some parts short or empty); the labels
+    stay the whole batch's, read from `dataset.labels` without decoding.
     """
 
     def __init__(
@@ -32,6 +41,7 @@ class BatchLoader:
         seed: int = 0,
         num_threads: int = 2,
         prefetch: int = 2,
+        shard: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -41,6 +51,11 @@ class BatchLoader:
         self.num_threads = max(1, num_threads)
         self.prefetch = max(1, prefetch)
         self._epoch = 0
+        rank, ranks = shard
+        if batch_size % ranks:
+            raise ValueError(f"batch size {batch_size} does not split into {ranks} equal parts")
+        per = batch_size // ranks
+        self.rows = slice(rank * per, (rank + 1) * per) if ranks > 1 else None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -62,6 +77,14 @@ class BatchLoader:
         return batches
 
     def _load_batch(self, idxs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        if self.rows is None:
+            return self._decode(idxs)
+        own = idxs[self.rows]
+        wavs = self._decode(own)[0] if len(own) else \
+            np.zeros((0, self.dataset.target_length), np.float32)
+        return wavs, self._labels[idxs]
+
+    def _decode(self, idxs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         if hasattr(self.dataset, "load_batch"):
             # Native fast path: one threaded C++ call assembles the batch.
             return self.dataset.load_batch(idxs)
@@ -76,6 +99,8 @@ class BatchLoader:
         batches = self._batch_indices()
         if not batches:
             return
+        if self.rows is not None:
+            self._labels = np.asarray(self.dataset.labels, np.int32)
         # Backpressure = a LOOKAHEAD WINDOW on batch indices: a worker may
         # START batch bi only while bi < next_bi + window, so one slow batch
         # can park at most `window` completed successors in host memory.

@@ -25,6 +25,11 @@ defaults:
 - dropout masks are drawn from the `generator` passed to `forward`: one
   mask per (sample, channel) after each block (flax `broadcast_dims=(1, 2)`),
   one per unit before the last dense layer, survivors scaled by 1/(1−p).
+
+`axis_name` is the data-parallel process group (`parallel/mesh.Mesh.group`)
+or None, as flax's `axis_name="data"` or None: with a group, train-mode
+BatchNorm normalizes with the statistics of the global batch over every
+rank (`cnn.py:52-57` of the JAX package).
 """
 
 from __future__ import annotations
@@ -67,6 +72,112 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class _PlainBatchNormOps:
+    """The five per-channel ops that torch's nn.SyncBatchNorm is built on
+    (`torch.batch_norm_stats` and the rest, fused kernels that exist for
+    CUDA tensors only), with the same signatures and results, for CPU
+    tensors. The per-rank variance is recovered from invstd, as the CUDA
+    gather does."""
+
+    @staticmethod
+    def batch_norm_stats(x, eps):
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        return mean, torch.rsqrt(var + eps)
+
+    @staticmethod
+    def batch_norm_gather_stats_with_counts(x, means, invstds, running_mean, running_var,
+                                            momentum, eps, counts):
+        """(Without running statistics to update, as SyncBatchNorm calls it.)"""
+        counts = counts[:, None]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        var = (counts * (invstds.pow(-2) - eps + (means - mean) ** 2)).sum(0) / total
+        return mean, torch.rsqrt(var + eps)
+
+    @staticmethod
+    def batch_norm_elemt(x, weight, bias, mean, invstd, eps):
+        a = invstd * weight
+        return torch.addcmul((bias - mean * a)[:, None, None], x, a[:, None, None])
+
+    @staticmethod
+    def batch_norm_backward_reduce(dy, x, mean, invstd, weight, input_g, weight_g, bias_g):
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xmu = (dy * (x - mean[:, None, None])).sum((0, 2, 3))
+        return sum_dy, sum_dy_xmu, sum_dy_xmu * invstd, sum_dy
+
+    @staticmethod
+    def batch_norm_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, counts):
+        total = counts.sum()
+        a = invstd * weight
+        b = -a * invstd * invstd * sum_dy_xmu / total
+        return torch.addcmul(torch.addcmul((-a * sum_dy / total - mean * b)[:, None, None],
+                                           x, b[:, None, None]), dy, a[:, None, None])
+
+
+class SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of an NCHW f32 tensor over the global batch of
+    every rank in `bn.group`, with its backward written out; it updates
+    `bn`'s running statistics flax's way.
+
+    It is torch's nn.SyncBatchNorm algorithm on the same fused per-channel
+    ops (`_PlainBatchNormOps` on the CPU). Forward: each rank's per-channel
+    (mean, invstd, n) is all-gathered once and merged into the global mean
+    and biased variance; the output is (x − mean)·invstd·w + bias.
+
+    Backward: each rank's loss is its share of the global one and the
+    trainer sums the ranks' parameter gradients, so every rank's share
+    depends on the global statistics. The rank's Σdy and Σdy·(x − mean)
+    are all-reduced (the cotangent of the statistics, summed over the
+    ranks), and dx = w·invstd·(dy − ΣΣdy / Σn − (x − mean)·invstd²·
+    ΣΣdy(x − mean) / Σn); the weight and bias gradients are the rank's own
+    share. The ranks' summed gradients are those of one BatchNorm over the
+    concatenated batch (tests/test_torch_data_parallel.py holds them to
+    it)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, bn: "BatchNorm"):
+        import torch.distributed as dist
+
+        ops = torch if x.is_cuda else _PlainBatchNormOps
+        c = x.shape[1]
+        mean, invstd = ops.batch_norm_stats(x, bn.eps)
+        local = torch.cat([mean, invstd, mean.new_full((1,), x.numel() // c)])
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(bn.group))]
+        dist.all_gather(parts, local, group=bn.group)
+        gathered = torch.stack(parts)
+        counts = gathered[:, 2 * c]
+        mean, invstd = ops.batch_norm_gather_stats_with_counts(
+            x, gathered[:, :c], gathered[:, c:2 * c], None, None, bn.momentum, bn.eps, counts)
+        # flax's running update, from the biased variance (the op's own
+        # would take the unbiased one)
+        var = invstd.pow(-2) - bn.eps
+        torch._foreach_lerp_([bn.running_mean, bn.running_var], [mean, var], bn.momentum)
+        bn.num_batches_tracked.add_(1)
+        ctx.save_for_backward(x, weight, mean, invstd, counts.int())
+        ctx.group = bn.group
+        return ops.batch_norm_elemt(x, weight, bias, mean, invstd, bn.eps)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        ops = torch if x.is_cuda else _PlainBatchNormOps
+        # in x's layout: the convolutions give channels-last tensors, and the
+        # fused ops take their channels-last kernels only when both are
+        layout = torch.channels_last if x.is_contiguous(memory_format=torch.channels_last) \
+            else torch.contiguous_format
+        dy = dy.contiguous(memory_format=layout)
+        sum_dy, sum_dy_xmu, grad_weight, grad_bias = ops.batch_norm_backward_reduce(
+            dy, x, mean, invstd, weight, True, True, True)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums, group=ctx.group)
+        sum_dy, sum_dy_xmu = sums.chunk(2)
+        grad_x = ops.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+                                               counts)
+        return grad_x, grad_weight, grad_bias, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` on NCHW, shared by
     both classifiers: it normalizes in float32 and returns x's dtype. Train
@@ -79,13 +190,21 @@ class BatchNorm(nn.BatchNorm2d):
     m·old + (1−m)·var·n/(n−1) for m = 0.9. With c = (n−1)/n, c·u + m·(1−c)·old
     is flax's m·old + (1−m)·var, without a second pass over x. The running
     variance F.batch_norm updates is a copy, since autograd may keep the
-    tensors it was given and `old` is rescaled in place."""
+    tensors it was given and `old` is rescaled in place.
 
-    def __init__(self, num_features: int):
+    With a process group (`group`), train mode is flax's cross-replica
+    form instead (`SyncBatchNorm`): it normalizes with the global batch's
+    mean and biased variance, and the running statistics take those. torch's
+    nn.SyncBatchNorm is not used: it stores the unbiased variance."""
+
+    def __init__(self, num_features: int, group=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
+        if self.training and self.group is not None:
+            return SyncBatchNorm.apply(xf, self.weight, self.bias, self).to(x.dtype)
         if not self.training:
             out = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
                                training=False, eps=self.eps)
@@ -106,12 +225,12 @@ class ConvBlock(nn.Module):
     """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> channel dropout."""
 
     def __init__(self, in_channels: int, out_channels: int, drop_rate: float = 0.2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name=None):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
-        self.bn = BatchNorm(out_channels)
+        self.bn = BatchNorm(out_channels, group=axis_name)
         self.pool = nn.MaxPool2d(2)  # floors odd sizes, as flax max_pool does
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -127,12 +246,14 @@ class LightweightCNN(nn.Module):
 
     def __init__(self, num_classes: int = 4, dropout: float = 0.3,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, axis_name=None):
         super().__init__()
         self.dtype = dtype
+        self.axis_name = axis_name
         chans = (1, 32, 64, 128, 256, 256)
         for i in range(5):
-            self.add_module(f"conv{i + 1}", ConvBlock(chans[i], chans[i + 1], dtype=dtype))
+            self.add_module(f"conv{i + 1}", ConvBlock(chans[i], chans[i + 1], dtype=dtype,
+                                                      axis_name=axis_name))
         self.fc1 = nn.Linear(256, 128)
         self.fc2 = nn.Linear(128, num_classes)
         self.drop_rate = dropout

@@ -34,9 +34,12 @@ def compute_dtype(config: dict[str, Any]) -> torch.dtype:
 
 
 def build_model(config: dict[str, Any], dtype: torch.dtype | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, axis_name=None):
     """Build a model from a config dict (model section: architecture,
-    num_classes, dropout), initialised from `generator`."""
+    num_classes, dropout), initialised from `generator`. `axis_name` is the
+    data-parallel process group (`parallel/mesh.Mesh.group`) its BatchNorm
+    statistics are taken over, or None (`registry.py:28` of the JAX
+    package takes the mesh axis name)."""
     arch = config["model"]["architecture"].lower()
     classes = _architectures()
     if arch not in classes:
@@ -46,5 +49,6 @@ def build_model(config: dict[str, Any], dtype: torch.dtype | None = None,
         dropout=config["model"]["dropout"],
         dtype=compute_dtype(config) if dtype is None else dtype,
         generator=generator,
+        axis_name=axis_name,
     )
 

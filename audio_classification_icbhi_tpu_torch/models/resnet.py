@@ -19,8 +19,9 @@ stay float32, convs and dense layers compute in `dtype`, BatchNorm
 normalizes in float32 and returns `dtype` before the residual add, so
 `relu(y + residual)` runs in `dtype`; the global mean sums in float32 and
 casts back; the logits come out float32. Train mode uses the shared flax
-BatchNorm (`models/cnn.BatchNorm`) and draws its per-unit head dropout from
-the `generator` passed to `forward`.
+BatchNorm (`models/cnn.BatchNorm`; cross-rank when `axis_name` is a process
+group, as flax's `axis_name`) and draws its per-unit head dropout from the
+`generator` passed to `forward`.
 """
 
 from __future__ import annotations
@@ -37,20 +38,20 @@ class BasicBlock(nn.Module):
     projection skip (torchvision's names)."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name=None):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.conv1 = nn.Conv2d(in_channels, features, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, group=axis_name)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, group=axis_name)
         self.downsample = None
         if stride != 1 or in_channels != features:
             # flax's default SAME padding is no padding for a 1x1 kernel
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, features, 1, stride=stride, bias=False),
-                BatchNorm(features))
+                BatchNorm(features, group=axis_name))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -69,11 +70,11 @@ class ResNet18(nn.Module):
     `CompactResNet.resnet`. Input NCHW in `dtype`; output f32 logits."""
 
     def __init__(self, num_classes: int, dropout: float, stage_sizes: tuple,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, axis_name=None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm(64)
+        self.bn1 = BatchNorm(64, group=axis_name)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)  # pads with -inf, as flax
         in_channels = 64
         for stage, num_blocks in enumerate(stage_sizes):
@@ -81,7 +82,7 @@ class ResNet18(nn.Module):
             blocks = []
             for block in range(num_blocks):
                 stride = 2 if stage > 0 and block == 0 else 1
-                blocks.append(BasicBlock(in_channels, features, stride, dtype))
+                blocks.append(BasicBlock(in_channels, features, stride, dtype, axis_name))
                 in_channels = features
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -111,10 +112,11 @@ class CompactResNet(nn.Module):
 
     def __init__(self, num_classes: int = 4, dropout: float = 0.3,
                  dtype: torch.dtype = torch.float32, stage_sizes: tuple = (2, 2, 2, 2),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, axis_name=None):
         super().__init__()
         self.dtype = dtype
-        self.resnet = ResNet18(num_classes, dropout, tuple(stage_sizes), dtype)
+        self.axis_name = axis_name
+        self.resnet = ResNet18(num_classes, dropout, tuple(stage_sizes), dtype, axis_name)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:

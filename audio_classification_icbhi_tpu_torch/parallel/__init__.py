@@ -1,1 +1,1 @@
-"""Feature extraction shared by the serving and training steps."""
+"""The train and eval steps, and the data-parallel mesh they shard over."""

@@ -14,19 +14,22 @@ the working directory unless --no-plots.
 from __future__ import annotations
 
 from audio_classification_icbhi_tpu_torch.data.dataset_segmented import ICBHISegmentedDataset
-from audio_classification_icbhi_tpu_torch.train import build_trainer, parse_args, report
+from audio_classification_icbhi_tpu_torch.train import build_trainer, report, run
 from audio_classification_icbhi_tpu_torch.training.trainer_icbhi import TrainerWithICBHI
 from audio_classification_icbhi_tpu_torch.utils import plotting
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def _main(args):
     trainer = build_trainer(args, ICBHISegmentedDataset, TrainerWithICBHI,
                             "config_segmented.yaml")
     history = trainer.train(resume_from=args.resume, profile_dir=args.profile)
     report(trainer, history, args, plotting.plot_icbhi_history, "icbhi_training_history.png",
            "ICBHI training history")
     return history
+
+
+def main(argv=None):
+    return run("audio_classification_icbhi_tpu_torch.train_icbhi", argv, _main)
 
 
 if __name__ == "__main__":

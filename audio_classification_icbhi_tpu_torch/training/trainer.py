@@ -15,8 +15,24 @@ a generator on the device seeded by (seed, epoch, step), so a resumed run
 repeats an uninterrupted one. Metrics stay on the device until the epoch
 ends and cross to the host in one copy.
 
-Not here yet: the device-resident cache and fused epoch (ROADMAP.md A6), the
-fp16 GradScaler mode (A5), multi-device training (A10), orbax (A4).
+Data parallelism (`mesh`, one rank a device, `parallel/mesh.py`; the JAX
+trainer's `:76-89`, `:290-333`): every rank reads the same seeded global
+batches, decodes only its `local_batch_slice` of each and trains on it
+through the sharded step (`parallel/data_parallel.py`), its draws from a
+generator seeded by (seed, epoch, step, rank) as the JAX step folds in the
+device index; the state is broadcast from rank 0 after init and after a
+restore; only rank 0 writes checkpoints and TensorBoard events, and the
+ranks meet at a barrier before reading a resume file. The model must carry the mesh's group
+(`build_model(config, axis_name=mesh.group)`).
+
+`training.precision: fp16` trains the fp16 model with the dynamic loss
+scale (the JAX trainer's `:141-154`): the scale state (65,536, 0 clean
+steps at the start) rides in the checkpoint as a float64 pair
+(`scale_state`, `:832-838` there), so either trainer resumes the other's
+fp16 run exactly.
+
+Not here yet: the device-resident cache and fused epoch (ROADMAP.md A6),
+orbax (A4).
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ import numpy as np
 import torch
 
 from audio_classification_icbhi_tpu_torch.data.loader import BatchLoader
+from audio_classification_icbhi_tpu_torch.models.registry import compute_dtype
 from audio_classification_icbhi_tpu_torch.models.weights import (
     flax_from_state_dict,
     opt_state_from_optax,
@@ -39,6 +56,12 @@ from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     eval_batches,
     make_step_fns,
+)
+from audio_classification_icbhi_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    replicate,
+    shard_batch,
 )
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.schedules import (
@@ -57,10 +80,24 @@ from audio_classification_icbhi_tpu_torch.utils.config import (
 from audio_classification_icbhi_tpu_torch.utils.tensorboard import SummaryWriter
 
 
-def step_seed(seed: int, epoch: int, step: int) -> int:
+def step_seed(seed: int, epoch: int, step: int, rank: int | None = None) -> int:
     """The seed of one train step's generator, a function of (seed, epoch,
-    step) alone."""
-    return int(np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0] >> 1)
+    step) alone, and of the rank on a mesh of several."""
+    entropy = [seed, epoch, step] + ([] if rank is None else [rank])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+class _NoWriter:
+    """The TensorBoard writer of a rank other than 0: it writes nothing."""
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class Trainer:
@@ -72,9 +109,14 @@ class Trainer:
     collect_predictions = False
 
     def __init__(self, model: torch.nn.Module, train_dataset, val_dataset,
-                 config: dict[str, Any], device: str | torch.device = "cuda"):
+                 config: dict[str, Any], device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
+        """`mesh`: this rank's data mesh (its device replaces `device`), or
+        None for one device."""
         check_ported_options(config)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.rank0 = mesh is None or mesh.rank == 0
         self.model = model
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -89,16 +131,30 @@ class Trainer:
         self.save_every = tcfg.get("save_every", 5)
         self.seed = int(config.get("seed", 42))
 
+        n_dev = mesh.world_size if mesh is not None else 1
+        if n_dev > 1 and getattr(model, "axis_name", None) is not mesh.group:
+            raise ValueError(
+                "the model's axis_name is not the mesh's process group, but training is "
+                f"data-parallel over a {n_dev}-rank mesh: BatchNorm statistics would silently "
+                "diverge per rank. Build the model with build_model(config, axis_name=mesh.group).")
+        if self.batch_size % n_dev:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by the {n_dev}-rank data mesh")
+
         self.frontend = MelFrontend.from_config(config)
         self.class_weights = torch.as_tensor(self._calculate_class_weights(), device=self.device)
+        # each rank decodes only its rows of the same seeded batches
+        shard = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
         self.train_loader = BatchLoader(train_dataset, self.batch_size, shuffle=True,
-                                        drop_last=True, seed=self.seed)
-        self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False)
+                                        drop_last=True, seed=self.seed, shard=shard)
+        self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False, shard=shard)
 
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         if config["model"].get("pretrained", False):
             self._load_pretrained()
         self.model.to(self.device)
+        if mesh is not None:
+            replicate(mesh, self.model.state_dict().values())
         self.optimizer_name = tcfg.get("optimizer", "adam")
         self.optimizer = build_optimizer(self.optimizer_name, self.model.named_parameters(),
                                          tcfg.get("weight_decay", 0.0))
@@ -107,20 +163,26 @@ class Trainer:
             plateau_mode=self.plateau_mode,
             warmup_epochs=int(tcfg.get("warmup_epochs", 0)),
         )
+        self.dynamic_loss_scale = compute_dtype(config) == torch.float16
+        # torch GradScaler's defaults: init scale 65,536, growth interval 2,000
+        self.scale_state = (np.float32(65536.0), np.int32(0))
         self.steps = make_step_fns(
             self.model, self.frontend, self.optimizer,
             accum_steps=self.accum_steps,
             augment=bool(config["data"].get("augmentation", False))
             and getattr(train_dataset, "augment", True),
-            max_grad_norm=1.0,
+            max_grad_norm=self._max_grad_norm(),
             accum_mode=tcfg.get("accum_mode", "parallel"),
+            mesh=mesh,
+            dynamic_loss_scale=self.dynamic_loss_scale,
         )
 
         self.checkpoint_dir = Path(tcfg.get("checkpoint_dir", "checkpoints"))
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self.async_checkpoint = bool(tcfg.get("async_checkpoint", True))
         self._ckpt_writer: AsyncCheckpointWriter | None = None
-        self.writer = SummaryWriter(log_dir=tcfg.get("log_dir", "runs"))
+        self.writer = SummaryWriter(log_dir=tcfg.get("log_dir", "runs")) if self.rank0 \
+            else _NoWriter()
 
         self.history = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
         self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
@@ -159,6 +221,10 @@ class Trainer:
         n = sum(v.numel() for k, v in converted.items() if k in params)
         print(f"Loaded pretrained weights from {path} ({n:,} params)")
 
+    def _max_grad_norm(self) -> float:
+        """The gradient-clip threshold of the step (LegacyTrainer: none)."""
+        return 1.0
+
     def _calculate_class_weights(self) -> np.ndarray:
         """Inverse-frequency weights; training.class_weighting=false gives
         uniform ones."""
@@ -194,16 +260,27 @@ class Trainer:
             yield np.stack(buf_w), np.stack(buf_l)
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(step_seed(self.seed, epoch, step))
+        rank = self.mesh.rank if self.mesh is not None and self.mesh.world_size > 1 else None
+        return torch.Generator(device=self.device).manual_seed(
+            step_seed(self.seed, epoch, step, rank))
 
     def train_epoch(self, epoch: int) -> tuple[float, float]:
         self.train_loader.set_epoch(epoch)
         lr = float(self.scheduler.lr)
         step_metrics = []
         for step_idx, (wavs, labels) in enumerate(self._grouped_batches(self.train_loader)):
-            metrics = self.steps.train_step(
-                self._to_device(wavs), self._to_device(labels).long(), self.class_weights, lr,
-                generator=self.step_generator(epoch, step_idx))
+            # on a mesh the loader decoded this rank's rows alone, and gave
+            # every row's label
+            wavs = self._to_device(wavs)
+            labels = shard_batch(self.mesh, labels, axis=1) if self.mesh is not None \
+                else self._to_device(labels)
+            args = (wavs, labels.long(), self.class_weights, lr)
+            generator = self.step_generator(epoch, step_idx)
+            if self.dynamic_loss_scale:
+                metrics, self.scale_state = self.steps.train_step(
+                    *args, generator=generator, scale_state=self.scale_state)
+            else:
+                metrics = self.steps.train_step(*args, generator=generator)
             step_metrics.append(metrics)
         if not step_metrics:
             return 0.0, 0.0
@@ -221,7 +298,7 @@ class Trainer:
         kept_preds, kept_labels = [], []
         for logits, num, den, corr, labels in eval_batches(
                 self.steps.eval_step, self.val_loader, self.batch_size, self.device,
-                self.class_weights):
+                self.class_weights, self.mesh):
             sums.append(torch.stack([num, den, corr]))
             total += len(labels)
             if self.collect_predictions:
@@ -374,7 +451,13 @@ class Trainer:
             "scheduler": self.scheduler.state_dict(),
             "best_metric": float(self._best_metric()),
             "patience_counter": int(self.patience_counter),
-        }
+        } | (
+            # the fp16 scale must resume exactly, or the first steps after a
+            # resume overflow at 65,536 and are skipped while it halves down
+            {"scale_state": np.asarray([float(self.scale_state[0]), float(self.scale_state[1])],
+                                       np.float64)}
+            if self.dynamic_loss_scale else {}
+        )
 
     def _best_metric(self) -> float:
         return self.best_val_loss
@@ -383,6 +466,8 @@ class Trainer:
         self.best_val_loss = value
 
     def save_checkpoint(self, path, epoch: int, val_loss: float, extra: dict | None = None):
+        if not self.rank0:  # every rank holds the same state; one writes it
+            return
         payload = self._checkpoint_payload(epoch, val_loss, extra or {})
         if self.async_checkpoint:
             if self._ckpt_writer is None:
@@ -406,6 +491,7 @@ class Trainer:
         state, the best-metric bar and the patience counter come back
         verbatim, so a resumed run matches an uninterrupted one."""
         self.wait_for_checkpoints()  # a queued write may be the file we read
+        barrier(self.mesh)  # ... and rank 0's, for every rank
         ckpt = load_checkpoint(path)
         sd = state_dict_from_flax({"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]})
         self.model.load_state_dict(sd)
@@ -413,6 +499,13 @@ class Trainer:
                                      self.optimizer_name)
         self.optimizer.load_state_dict({"state": state,
                                         "param_groups": self.optimizer.state_dict()["param_groups"]})
+        if self.mesh is not None:
+            replicate(self.mesh, list(self.model.state_dict().values()) + [
+                t for st in self.optimizer.state.values() for t in st.values()
+                if torch.is_tensor(t) and t.device == self.device])
+        if self.dynamic_loss_scale and "scale_state" in ckpt:
+            s = np.asarray(ckpt["scale_state"])
+            self.scale_state = (np.float32(s[0]), np.int32(s[1]))
         self.start_epoch = int(ckpt["epoch"]) + 1
         if "best_metric" in ckpt:
             self._restore_best_metric(float(ckpt["best_metric"]), ckpt)
@@ -424,7 +517,9 @@ class Trainer:
         else:  # replay with the selection metric
             for _ in range(self.start_epoch):
                 self.scheduler.step(self._best_metric())
-        print(f"Resumed from {path} at epoch {self.start_epoch}")
+        scale = (f" (loss scale {float(self.scale_state[0]):g}, {int(self.scale_state[1])} clean "
+                 "steps)") if self.dynamic_loss_scale else ""
+        print(f"Resumed from {path} at epoch {self.start_epoch}{scale}")
 
     def _legacy_best_metric(self, ckpt: dict) -> float:
         return float(ckpt.get("val_loss", float("inf")))

@@ -8,7 +8,12 @@ softmax on the device, argmax on the host. The logits stay on the device
 until the pass ends; their softmax crosses to the host in one copy (and the
 logits in a second, when asked for). Either classifier serves, with the
 weights it holds: a model loaded by `ClassifierEngine` reads a checkpoint
-written by either package."""
+written by either package.
+
+On a data mesh of several ranks (`parallel/mesh.py`, `validation.py:57-73`
+there), the batch size rounds up to a multiple of the ranks, each rank
+decodes and runs only its rows of every padded batch, and the logits come
+back all-gathered, so every rank returns the same arrays."""
 
 from __future__ import annotations
 
@@ -21,27 +26,31 @@ from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     eval_batches,
     make_eval_step,
 )
+from audio_classification_icbhi_tpu_torch.parallel.mesh import Mesh
 from audio_classification_icbhi_tpu_torch.utils.config import resolve_device
 
 
 class Validator:
     """Runs on `device` ("cuda" by default; it raises where no GPU exists,
-    and runs on the CPU only when given device="cpu")."""
+    and runs on the CPU only when given device="cpu"), or on this rank's
+    device of `mesh`."""
 
     def __init__(self, model: torch.nn.Module, dataset, config: dict,
-                 device: str | torch.device = "cuda", batch_size: int | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "validating over a device mesh is not ported yet (ROADMAP.md A10); "
-                "pass mesh=None")
-        self.device = resolve_device(device)
+                 device: str | torch.device = "cuda", batch_size: int | None = None,
+                 mesh: Mesh | None = None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.model = model.to(self.device)
         self.dataset = dataset
         self.config = config
         self.batch_size = batch_size or config["training"]["batch_size"]
+        n_dev = mesh.world_size if mesh is not None else 1
+        # a multiple of the ranks; the padding and mask cover the rest
+        self.batch_size = -(-self.batch_size // n_dev) * n_dev
         self.frontend = MelFrontend.from_config(config)
-        self.eval_step = make_eval_step(model, self.frontend)
-        self.loader = BatchLoader(dataset, self.batch_size, shuffle=False)
+        self.eval_step = make_eval_step(model, self.frontend, mesh)
+        self.loader = BatchLoader(dataset, self.batch_size, shuffle=False,
+                                  shard=(mesh.rank, n_dev) if mesh is not None else (0, 1))
         self.num_classes = config["model"]["num_classes"]
 
     def validate(self, with_logits: bool = False) -> tuple[np.ndarray, ...]:
@@ -50,7 +59,7 @@ class Validator:
         ones = torch.ones(self.num_classes, device=self.device)
         y_true, logits = [], []
         for batch_logits, _, _, _, labels in eval_batches(
-                self.eval_step, self.loader, self.batch_size, self.device, ones):
+                self.eval_step, self.loader, self.batch_size, self.device, ones, self.mesh):
             logits.append(batch_logits.float())
             y_true.append(labels)
         if not logits:

@@ -79,8 +79,6 @@ def check_ported_options(config: dict[str, Any]) -> None:
     asked = [
         (data.get("cache_on_device", False),
          "data.cache_on_device (the device-resident waveform cache, ROADMAP.md A6)"),
-        (train.get("precision") == "fp16",
-         "training.precision: fp16 (the GradScaler loss-scale mode, ROADMAP.md A5)"),
         (train.get("checkpoint_format", "msgpack") == "orbax",
          "training.checkpoint_format: orbax (ROADMAP.md A4)"),
         (train.get("steps_per_dispatch", 1) != 1,

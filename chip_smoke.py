@@ -158,6 +158,20 @@ toolkit. Phases:
    train step at config_segmented.yaml by CUDA events and as a CUDA graph.
    Its row-1 launches (94 frames at 3 s, 251 at 8 s) add to the kernels
    line.
+22. data-parallel training and the fp16 loss scale: phase 8's lr-1 SGD
+   step on a world-size-1 NCCL mesh (cross-rank BatchNorm, the
+   all-reduces) against the same step without a group on the card and on
+   the CPU, by phase 8's bound; two NCCL ranks against one where two GPUs
+   are visible (else it prints that this part did not run); the fp16
+   loss-scaled step on the card against the CPU, and a forced overflow,
+   skipped with the scale halved; one epoch of `train --multihost
+   --num-processes 1` at config.yaml with `precision: fp16` as a
+   subprocess printing its launch counts, resumed as a subprocess from its
+   checkpoint's scale state, its best checkpoint served; the analyzer on a
+   1-device mesh against no mesh at 0.5 and 1 s windows; and the train step
+   at config.yaml on the NCCL mesh and in fp16 beside the plain bf16 step
+   (CUDA events, host launch calls, profiler busy time). Its row-1 and
+   row-2 launches add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -213,6 +227,7 @@ from audio_classification_icbhi_tpu_torch.models import (
     make_fused_apply,
 )
 from audio_classification_icbhi_tpu_torch.models import fused_infer
+from audio_classification_icbhi_tpu_torch.models.cnn import BatchNorm
 from audio_classification_icbhi_tpu_torch.models.weights import (
     flax_from_state_dict,
     state_dict_from_flax,
@@ -225,6 +240,13 @@ from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, mel_filter
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     features_from_wavs,
     make_step_fns,
+)
+from audio_classification_icbhi_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    close_distributed,
+    free_port,
+    get_mesh,
+    init_distributed,
 )
 from audio_classification_icbhi_tpu_torch.step_floor import (
     param_arrays,
@@ -469,9 +491,10 @@ def main() -> int:
         print(f"phase 2: {name} -> {path}\n{log.strip()}")
 
     # Phase 3: kernel vs its plain version (f64) on the card, at the serving
-    # shape, at validation's (batch 32 of 3 s and 8 s clips) and an odd one
+    # shape, at validation's (batch 32 of 3 s and 8 s clips), at phase 22's
+    # fp16 step (8 clips of 2 s) and an odd one
     errs = []
-    for b, length in ((BATCH, CLIP), (32, SEG_CLIP), (32, TRAIN_CLIP), (3, 16320)):
+    for b, length in ((BATCH, CLIP), (32, SEG_CLIP), (32, TRAIN_CLIP), (8, 2 * SR), (3, 16320)):
         x = (0.1 * rng.standard_normal((b, length))).astype(np.float32)
         x[1] *= 20.0  # one loud example: the epilogue is per example
         xt = torch.from_numpy(x).to(dev)
@@ -605,7 +628,7 @@ def main() -> int:
                "bound_by": bound_by, "library_ms": library_ms}
 
     masked_err = phase7_masked_kernel(dev, rng)
-    phase8_train_step(dev, rng)
+    sgd_step = phase8_train_step(dev, rng)
     with tempfile.TemporaryDirectory() as tmp:
         corpus, masked_launches = phase9_trainer(Path(tmp), card)
         training = phase10_timings(dev, rng, card, corpus, Path(tmp))
@@ -619,6 +642,7 @@ def main() -> int:
         dft_gemm = phase18_dft_gemm(dev, card, Path(tmp))
         resnet = phase20_resnet(dev, rng, card, Path(tmp), corpus, recording)
         segmented = phase21_segmented(dev, rng, card, Path(tmp), corpus)
+        parallel = phase22_data_parallel(dev, rng, card, Path(tmp), corpus, recording, sgd_step)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -627,10 +651,11 @@ def main() -> int:
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
-    serving["launches"] += resnet["inference"] + segmented["inference"]
-    training.update(launches=masked_launches + resnet["masked"] + segmented["masked"],
-                    max_abs_err=masked_err)
-    r8.update(launches=r8_launches["inference"] + resnet["analyzer"], max_abs_err=r8_err)
+    serving["launches"] += resnet["inference"] + segmented["inference"] + parallel["inference"]
+    training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
+                    + parallel["masked"], max_abs_err=masked_err)
+    r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
+              max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
 
     csrc = "audio_classification_icbhi_tpu_torch/csrc/"
@@ -733,9 +758,11 @@ def one_train_step(model, init: dict, device, frontend, optimizer: str, lr: floa
     return {k: float(v) for k, v in m.items()}, model, opt
 
 
-def phase8_train_step(dev, rng) -> None:
+def phase8_train_step(dev, rng) -> dict:
     """One optimizer step on the card against the same step on the CPU, at
-    config.yaml's front end and model with batch 8 x accumulation 2."""
+    config.yaml's front end and model with batch 8 x accumulation 2.
+    Returns its inputs, the lr-1 SGD step's runs on the card and the CPU
+    and their `step_floor`, which phase 22 holds its steps to."""
     cfg = load_config(str(REPO / "config.yaml"))
     fe = MelFrontend.from_config(cfg)
     a, b = 2, 8
@@ -793,12 +820,16 @@ def phase8_train_step(dev, rng) -> None:
           f"{floor.grad_norm:.2e})")
     check(abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-4 * abs(m_cpu["loss"]), "sgd step loss")
     check(margins.ok, f"sgd step params and grad norm, cuda vs cpu ({margins})")
+    sgd = dict(fe=fe, wavs=wavs, labels=labels, cw=cw, init=init, floor=floor,
+               card=(param_arrays(model_gpu), m_gpu["grad_norm"]), card_loss=m_gpu["loss"],
+               cpu=(param_arrays(model_cpu), m_cpu["grad_norm"]))
 
     # (c) bf16 compute on the card
     m_bf, _, _ = step(dev, "adam", 3e-3, augment=True, dtype=torch.bfloat16)
     print(f"phase 8: bf16 augmented step on the card: loss {m_bf['loss']:.6f}, "
           f"grad_norm {m_bf['grad_norm']:.4f}")
     check(math.isfinite(m_bf["loss"]) and math.isfinite(m_bf["grad_norm"]), "finite bf16 step")
+    return sgd
 
 
 def phase9_trainer(tmp: Path, card: str) -> tuple[Path, int]:
@@ -3125,11 +3156,10 @@ SEG_RECORDINGS, SEG_CYCLES = 64, 6  # 384 cycles: 288 / 48 / 48, 3 optimizer ste
 
 # A subprocess that trains through `train_icbhi.main` and prints, as its
 # last line, the launches its kernel wrappers counted.
-TRAIN_ICBHI_COUNTED = """
-import json, sys, torch
-from audio_classification_icbhi_tpu_torch import train_icbhi
+ENTRY_COUNTED = """
+import importlib, json, sys, torch
 from audio_classification_icbhi_tpu_torch.ops import mel_kernels
-history = train_icbhi.main(sys.argv[1:])
+history = importlib.import_module(sys.argv[1]).main(sys.argv[2:])
 print(json.dumps({"history": history, "epilogue": mel_kernels.log_mel_epilogue.launches,
                   "launches": {name: [fn.launches, fn.launches_masked]
                                for name, fn in mel_kernels.WRAPPERS.items()}}))
@@ -3226,7 +3256,8 @@ def phase21_segmented(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str,
         work.mkdir()
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-c", TRAIN_ICBHI_COUNTED, "--config", seg_config, "--data-path",
+            [sys.executable, "-c", ENTRY_COUNTED, "audio_classification_icbhi_tpu_torch.train_icbhi",
+             "--config", seg_config, "--data-path",
              str(segmented), "--epochs", "1", "--no-plots", "--model", arch, "--device", dev.type],
             cwd=work, env=env, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
@@ -3341,6 +3372,325 @@ def phase21_segmented(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str,
               f"device {device_ms:.3f} ms a step as a replayed CUDA graph (busy "
               f"{100 * device_ms / step_ms:.1f}% of the eager step)")
     print(f"phase 21: row 1 launches over the phase's main paths {launches}")
+    return launches
+
+
+LOSS_SCALE_START = (np.float32(65536.0), np.int32(0))  # torch GradScaler's defaults
+
+
+def mesh_step_times(cfg: dict, dev, rng, mesh=None) -> tuple[float, float, float]:
+    """The train step at `cfg` on 2 x 32 clips of 8 s (Adam, augmentation
+    on, the draws and dropout from a generator on the card), through
+    `mesh`'s group when given (its BatchNorm and its step), with the fp16
+    loss scale when cfg asks for fp16. Returns its ms by CUDA events back to
+    back, its host launch calls a step, and its device-busy ms a step by
+    the profiler: the fp16 step reads its skip flag on the host, which a
+    CUDA graph cannot hold, and the NCCL step's collectives are not
+    captured; the profiler undercounts (PERF.md §7), so the plain step's
+    figure by the same means stands beside."""
+    fe = MelFrontend.from_config(cfg)
+    a, b = 2, 32
+    wavs = torch.from_numpy(synth_clips(rng, a * b, TRAIN_CLIP).reshape(a, b, TRAIN_CLIP)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long().to(dev)
+    cw = torch.ones(4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                        axis_name=mesh.group if mesh is not None else None).to(dev)
+    scaled = cfg["training"].get("precision") == "fp16"
+    fns = make_step_fns(model, fe, build_optimizer("adam", model.named_parameters(), 1e-4),
+                        accum_steps=a, augment=True, mesh=mesh, dynamic_loss_scale=scaled)
+    scale = [LOSS_SCALE_START]
+
+    def one_step():
+        if not scaled:
+            return fns.train_step(wavs, labels, cw, 3e-3, generator=gen)
+        m, scale[0] = fns.train_step(wavs, labels, cw, 3e-3, generator=gen, scale_state=scale[0])
+        return m
+
+    step_ms = cuda_ms(one_step, iters=10, warmup=3)
+    per_step = launch_calls(one_step, 2)
+    _, busy_us, _ = trace_device(one_step, 3)
+    return step_ms, per_step, busy_us / 3e3
+
+
+def sync_batchnorm_on_card(dev, rng, card: str, mesh) -> None:
+    """The cross-rank BatchNorm (`models/cnn.SyncBatchNorm`, on torch's fused
+    per-channel ops on the card) at world size 1 against BatchNorm without a
+    group (cuDNN's) on the same input: block 1's in the train step at
+    config.yaml, 32 clips x 32 channels x 128 mels x 251 frames, channels
+    last as the convolution leaves it. Output, input and parameter
+    gradients, running statistics; then each one's forward and backward by
+    CUDA events."""
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a.astype(np.float32)).to(dev).contiguous(
+            memory_format=torch.channels_last)
+
+    x = on_card(1.5 * rng.standard_normal((32, 32, N_MELS, 251)) + 0.3)
+    cot = on_card(rng.standard_normal(tuple(x.shape)))
+    runs = {}
+    for name, group in (("sync", mesh.group), ("plain", None)):
+        bn = BatchNorm(32, group=group).to(dev).train()
+        xg = x.clone().requires_grad_()
+        y = bn(xg)
+        (y * cot).sum().backward()
+        runs[name] = (y.detach(), xg.grad, bn.weight.grad, bn.bias.grad,
+                      bn.running_mean.clone(), bn.running_var.clone())
+
+        def fwd_bwd(bn=bn):
+            xg = x.clone().requires_grad_()
+            (bn(xg) * cot).sum().backward()
+
+        runs[name] += (cuda_ms(fwd_bwd, iters=20),)
+    names = ("output", "input grad", "weight grad", "bias grad", "running mean", "running var")
+    errs = [float(((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item())
+            for a, b in zip(runs["sync"][:6], runs["plain"][:6])]
+    print(f"phase 22: cross-rank BatchNorm at world size 1 (fused per-channel ops, NCCL) against "
+          f"BatchNorm without a group, 32 x 32 x {N_MELS} x 251 f32 channels last: max |d| / "
+          f"max(1, max|ref|) "
+          + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)) + " (tol 1e-5)")
+    print(f"phase 22: [{card}] forward + backward by CUDA events: cross-rank "
+          f"{runs['sync'][6]:.3f} ms, without a group {runs['plain'][6]:.3f} ms")
+    check(max(errs) <= 1e-5, "the cross-rank BatchNorm at world size 1 is BatchNorm")
+
+
+def phase22_data_parallel(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path,
+                          sgd: dict) -> dict[str, int]:
+    """Data-parallel training and the fp16 loss scale on the card, the launch
+    counts zeroed before and read after each main-path run:
+    (a) phase 8's lr-1 SGD step (config.yaml, 2 x 8 x 8 s, fp32) on a
+    world-size-1 NCCL mesh (cross-rank BatchNorm, the all-reduces) against
+    the same step without a group on the card and on the CPU, by phase 8's
+    `step_floor`; (b) two NCCL ranks against one, where two GPUs are
+    visible; (c) the fp16 scaled step on the card against the CPU, and a
+    forced overflow (scale 2^24), which must be skipped with the scale
+    halved and the parameters untouched; (d) one epoch of `train` at
+    config.yaml with `precision: fp16` under `--multihost --num-processes
+    1` as a subprocess printing its counts, resumed as a subprocess with
+    its checkpoint's scale state, and its best checkpoint served; (e) the
+    analyzer on a 1-device mesh against no mesh at 0.5 and 1 s windows;
+    (f) the NCCL and fp16 steps' times beside the plain bf16 step's.
+    Returns row 1's launches ("inference", "masked") and row 2's
+    ("analyzer")."""
+    import yaml
+
+    launches = {"inference": 0, "masked": 0, "analyzer": 0}
+    k8, k16 = mel_kernels.log_mel_radix8dif_fused, mel_kernels.log_mel_radix16dif_fused
+    wavs, labels, cw = (sgd[k].to(dev) for k in ("wavs", "labels", "cw"))
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg16 = load_config(str(REPO / "config.yaml"))
+    cfg16["training"]["precision"] = "fp16"
+
+    # (a) the NCCL step at world size 1, and (f) the timings
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = get_mesh(device=dev)
+        check(mesh.group is not None and mesh.world_size == 1 and mesh.device.type == "cuda",
+              "a world-size-1 NCCL mesh on the card")
+        model = LightweightCNN(axis_name=mesh.group)
+        model.load_state_dict(sgd["init"])
+        model.to(dev).set_dropout(0.0)
+        fns = make_step_fns(model, sgd["fe"], build_optimizer("sgd", model.named_parameters(),
+                                                              1e-4), accum_steps=2, mesh=mesh)
+        zero_counts()
+        m = {k: float(v) for k, v in fns.train_step(wavs, labels, cw, 1.0).items()}
+        torch.cuda.synchronize()
+        read_epilogue("phase 22 NCCL step")
+        check(k16.launches == 1 and k16.launches_masked == 0, "the NCCL step ran row 1 once")
+        launches["inference"] += k16.launches
+        got = (param_arrays(model), m["grad_norm"])
+        vs_card = step_margins(got, sgd["card"], sgd["floor"])
+        vs_cpu = step_margins(got, sgd["cpu"], sgd["floor"])
+        loss_err = abs(m["loss"] - sgd["card_loss"]) / abs(sgd["card_loss"])
+        print(f"phase 22: lr-1 SGD step on a world-size-1 NCCL mesh (cross-rank BN, all-reduces), "
+              f"2 x 8 x 8 s fp32: loss {m['loss']:.6f} (rel {loss_err:.2e} from the step without "
+              f"a group, tol 1e-5); params worst |d| over phase 8's bound {vs_card.params:.3f} "
+              f"against the card's step without a group, {vs_cpu.params:.3f} against the CPU's; "
+              f"grad norm {vs_card.grad_norm:.3f} / {vs_cpu.grad_norm:.3f}")
+        check(loss_err <= 1e-5, "NCCL step loss")
+        check(vs_card.ok and vs_cpu.ok, f"NCCL step params ({vs_card}; {vs_cpu})")
+
+        sync_batchnorm_on_card(dev, rng, card, mesh)
+
+        ones = torch.ones(64, device=dev)  # one collective's own cost, on the host and the card
+        for _ in range(10):
+            all_reduce_sum(ones, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            all_reduce_sum(ones, mesh)
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        call_us = (time.perf_counter() - t0) * 1e4
+        print(f"phase 22: [{card}] a 64-float NCCL all-reduce at world size 1: {host_us:.1f} us "
+              f"of host time a call, {call_us:.1f} us a call to the card's sync (100 calls)")
+        plain = mesh_step_times(cfg, dev, rng)
+        dp = mesh_step_times(cfg, dev, rng, mesh)
+        half = mesh_step_times(cfg16, dev, rng)
+        graph = train_step_times(cfg, dev, rng, 2, 32, TRAIN_CLIP)[2]
+    finally:
+        close_distributed()
+    for what, (ms, per, busy) in (("bf16, no group", plain), ("bf16, world-size-1 NCCL mesh", dp),
+                                  ("fp16, loss-scaled", half)):
+        print(f"phase 22: [{card}] train step at config.yaml (32 x 2 x 8 s, adam, augmentation "
+              f"on), {what}: {ms:.3f} ms by CUDA events back to back; {per:.0f} kernel launches "
+              f"a step; device busy {busy:.3f} ms a step by the profiler "
+              f"({100 * busy / plain[2] - 100:+.1f}% against the plain step's)")
+    print(f"phase 22: [{card}] the plain bf16 step as a replayed CUDA graph: {graph:.3f} ms")
+
+    # (b) two NCCL ranks against one
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        cfg2 = load_config(str(REPO / "config.yaml"))
+        cfg2["data"]["augmentation"] = False
+        cfg2["model"].update(architecture="resnet", dropout=0.0)  # no draw depends on the rank
+        cfg2["training"].update(mixed_precision=False, optimizer="sgd", learning_rate=0.01)
+        runs = {}
+        for n in (2, 1):
+            cfg2["training"].update(checkpoint_dir=str(tmp / f"r{n}" / "ckpt"),
+                                    log_dir=str(tmp / f"r{n}" / "runs"))
+            path = tmp / f"ranks{n}.yaml"
+            path.write_text(yaml.safe_dump(cfg2))
+            runs[n] = quiet(train_entry.main, ["--config", str(path), "--data-path", str(corpus),
+                                               "--epochs", "1", "--no-plots", "--num-devices",
+                                               str(n)])
+        err = max(abs(a - b) / abs(b) for k in ("train_loss", "val_loss")
+                  for a, b in zip(runs[2][k], runs[1][k]))
+        print(f"phase 22: [{card}] two NCCL ranks against one, ResNet fp32 without dropout, one "
+              f"epoch: losses {runs[2]['train_loss']} / {runs[1]['train_loss']}, max rel {err:.2e} "
+              f"(tol 2e-3)")
+        check(err <= 2e-3, "two NCCL ranks against one")
+    else:
+        print(f"phase 22: two NCCL ranks against one: not run, {n_gpu} CUDA device visible "
+              f"(NCCL takes one GPU a rank); the 2- and 4-rank steps are held on the CPU over "
+              f"gloo (tests/test_torch_data_parallel.py)")
+
+    # (c) the fp16 scaled step, card against CPU, and a forced overflow, on
+    # 2 x 4 clips of 2 s of phase 8's (fp16 convolutions are slow on the CPU)
+    def fp16_step(device, scale_state):
+        model = LightweightCNN(dtype=torch.float16)
+        model.load_state_dict(sgd["init"])
+        model.to(device).set_dropout(0.0)
+        fns = make_step_fns(model, sgd["fe"], build_optimizer("sgd", model.named_parameters(),
+                                                              1e-4),
+                            accum_steps=2, dynamic_loss_scale=True)
+        m, ss = fns.train_step(sgd["wavs"][:, :4, :2 * SR].to(device),
+                               sgd["labels"][:, :4].to(device), sgd["cw"].to(device), 1e-2,
+                               scale_state=scale_state)
+        return {k: float(v) for k, v in m.items()}, ss, model
+
+    zero_counts()
+    m_gpu, ss_gpu, model_gpu = fp16_step(dev, LOSS_SCALE_START)
+    huge = (np.float32(2.0 ** 24), np.int32(4))
+    m_over, ss_over, model_over = fp16_step(dev, huge)
+    torch.cuda.synchronize()
+    read_epilogue("phase 22 fp16 steps")
+    check(k16.launches == 2 and k16.launches_masked == 0, "the fp16 steps ran row 1")
+    launches["inference"] += k16.launches
+    m_cpu, ss_cpu, model_cpu = fp16_step("cpu", LOSS_SCALE_START)
+    loss_err = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    norm_err = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
+    sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
+    bn_err = max(((sd_g[k].cpu() - sd_c[k]).abs() / (sd_c[k].abs() + 1e-2)).max().item()
+                 for k in sd_c if "running" in k)
+    print(f"phase 22: fp16 loss-scaled SGD step, 2 x 4 x 2 s: loss cuda {m_gpu['loss']:.6f} cpu "
+          f"{m_cpu['loss']:.6f} (rel {loss_err:.2e}, tol 5e-3); grad norm rel {norm_err:.2e} "
+          f"(tol 5e-2); BN buffers max rel {bn_err:.2e} (tol 2e-2); scale state cuda "
+          f"{ss_gpu} cpu {ss_cpu}")
+    check(loss_err <= 5e-3 and norm_err <= 5e-2 and bn_err <= 2e-2, "fp16 step, cuda vs cpu")
+    check(m_gpu["step_skipped"] == m_cpu["step_skipped"] == 0.0
+          and ss_gpu == ss_cpu == (65536.0, 1), "a clean fp16 step counts towards growth")
+    untouched = all(torch.equal(p.detach().cpu(), sgd["init"][n])
+                    for n, p in model_over.named_parameters())
+    print(f"phase 22: forced overflow (scale 2^24): skipped {m_over['step_skipped']:g}, grad norm "
+          f"{m_over['grad_norm']}, scale state {ss_over}, parameters untouched {untouched}")
+    check(m_over["step_skipped"] == 1.0 and math.isinf(m_over["grad_norm"])
+          and ss_over == (2.0 ** 23, 0) and untouched, "the overflowing step was skipped")
+
+    # (d) train at fp16 under --multihost, resumed, served
+    work = tmp / "fp16"
+    work.mkdir()
+    (work / "fp16.yaml").write_text(yaml.safe_dump(cfg16))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+
+    def multihost() -> list[str]:
+        return ["--multihost", "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+                "1", "--process-id", "0"]
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", ENTRY_COUNTED, "audio_classification_icbhi_tpu_torch.train",
+         "--config", "fp16.yaml", "--data-path", str(corpus), "--epochs", "1", "--no-plots",
+         *multihost()], cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"fp16 --multihost train exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    check("Distributed: process 0" in out.stdout, "the run joined its process group")
+    counted = json.loads(out.stdout.strip().splitlines()[-1])
+    row1 = counted["launches"]["radix16dif_fused"]
+    others = sum(sum(v) for k, v in counted["launches"].items() if k != "radix16dif_fused")
+    check(row1[0] > 0 and row1[1] > 0 and others == 0, "the fp16 epoch ran row 1, both forms")
+    check(counted["epilogue"] == sum(row1), "the epilogue launched with each log-mel call")
+    launches["inference"] += row1[0]
+    launches["masked"] += row1[1]
+    EPILOGUE_MAIN_PATH["launches"] += counted["epilogue"]
+    best = work / "checkpoints" / "best_model.ckpt"
+    scale_state = load_checkpoint(best)["scale_state"]
+    history = counted["history"]
+    print(f"phase 22: [{card}] train --multihost --num-processes 1 at config.yaml with precision: "
+          f"fp16, 1 epoch (subprocess, start-up included): {wall:.1f} s; history "
+          f"{json.dumps(history)}; row 1 launches {row1[0]} (validation), {row1[1]} masked "
+          f"(training); checkpoint scale_state {scale_state.tolist()} ({scale_state.dtype})")
+    check(scale_state.dtype == np.float64 and scale_state.shape == (2,), "scale_state is a pair")
+    check(all(math.isfinite(v) for vals in history.values() for v in vals), "finite fp16 history")
+    out = subprocess.run(
+        [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config",
+         "fp16.yaml", "--data-path", str(corpus), "--epochs", "2", "--resume", str(best),
+         "--no-plots", *multihost()], cwd=work, env=env, capture_output=True, text=True,
+        timeout=600)
+    check(out.returncode == 0, f"resumed fp16 training exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    found = re.search(r"Resumed from .* at epoch 1 \(loss scale ([0-9.e+]+), (\d+) clean steps\)",
+                      out.stdout)
+    check(found is not None and "Epoch 2/2" in out.stdout, "resumed to a second fp16 epoch")
+    resumed = (float(found.group(1)), int(found.group(2)))
+    print(f"phase 22: resumed run (subprocess) started from loss scale {resumed[0]:g} with "
+          f"{resumed[1]} clean steps; the checkpoint holds {scale_state.tolist()}")
+    check(resumed == (float(scale_state[0]), int(scale_state[1])), "scale_state resumed exactly")
+    engine = ClassifierEngine(best, device="cuda")
+    clip, _ = ICBHIDataset(corpus, "test", engine.config)[0]
+    result = engine.classify_wave(clip)
+    probs = np.array(list(result["probabilities"].values()))
+    print(f"phase 22: the fp16 best checkpoint served on the card ({engine.model.dtype}): "
+          f"{result['predicted_class']} {result['confidence']:.4f}")
+    check(engine.model.dtype == torch.float16 and bool(np.isfinite(probs).all())
+          and abs(probs.sum() - 1.0) < 1e-3, "fp16 checkpoint served")
+
+    # (e) the analyzer on a 1-device mesh against no mesh
+    trained = str(tmp / "run" / "checkpoints" / "best_model.ckpt")
+    for duration in (0.5, 1.0):
+        plain = quiet(AnalyzerEngine, trained, segment_duration=duration, sample_rate=SR,
+                      device="cuda")
+        windows, _, _ = quiet(plain.segment_audio, quiet(plain.load_audio, recording))
+        want = plain.predict_window_probs(windows)
+        zero_counts()
+        meshed = quiet(AnalyzerEngine, trained, segment_duration=duration, sample_rate=SR,
+                       devices=["cuda"])
+        got = meshed.predict_window_probs(windows)
+        torch.cuda.synchronize()
+        read_epilogue(f"phase 22 analyzer on a mesh at {duration:g} s")
+        err = float(np.abs(got - want).max())
+        print(f"phase 22: analyzer on a 1-device mesh at {duration:g} s windows, {len(windows)} "
+              f"windows (bucket {meshed._window_bucket(len(windows))}): max|mesh - no mesh| = "
+              f"{err:.3e} (tol 1e-6); launches radix8 {k8.launches}, radix16 {k16.launches}")
+        check(err <= 1e-6, "the analyzer on a mesh")
+        if duration < 1.0:
+            check(k8.launches == 1 and k16.launches == 0, "0.5 s windows ran row 2")
+            launches["analyzer"] += k8.launches
+        else:
+            check(k16.launches == 1 and k8.launches == 0, "1 s windows ran row 1")
+            launches["inference"] += k16.launches
+    print(f"phase 22: row 1 and row 2 launches over the phase's main paths {launches}")
     return launches
 
 

@@ -156,8 +156,9 @@ class TestSegmentation:
                 cls(ckpts[False], overlap=1.0, **kw)
             with pytest.raises(ValueError, match="unknown analyzer mode"):
                 cls(ckpts[False], mode="Legacy", **kw)
-        with pytest.raises(NotImplementedError, match="A10"):
-            AnalyzerEngine(ckpts[False], mesh=object(), device="cpu")
+        # the JAX engine's mesh is taken now, as a list of devices that replaces `device`
+        engine = AnalyzerEngine(ckpts[False], devices=["cpu", "cpu"], device="cuda")
+        assert engine.device == torch.device("cpu") and engine._window_bucket(33) == 64
 
     def test_max_duration_crop_and_resample(self, ckpts, tmp_path):
         p = tmp_path / "long.wav"

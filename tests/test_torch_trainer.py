@@ -294,7 +294,6 @@ def test_train_entry_point_needs_a_gpu_by_default(corpus, monkeypatch):
 
 @pytest.mark.parametrize("section, key, value, row", [
     ("data", "cache_on_device", True, "A6"),
-    ("training", "precision", "fp16", "A5"),
     ("training", "checkpoint_format", "orbax", "A4"),
     ("training", "steps_per_dispatch", 4, "A6"),
 ])

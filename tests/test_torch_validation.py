@@ -41,6 +41,7 @@ from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     eval_batches,
     make_eval_step,
 )
+from audio_classification_icbhi_tpu_torch.parallel.mesh import get_mesh
 from audio_classification_icbhi_tpu_torch.training.validation import Validator
 from audio_classification_icbhi_tpu_torch.utils.config import load_config
 from audio_classification_icbhi_tpu_torch.utils.metrics import calculate_metrics
@@ -134,10 +135,14 @@ def test_validator_matches_jax(corpus, arch, jax_f32_frontend):
 
 
 def test_validator_raises_on_mesh_and_missing_gpu(corpus, monkeypatch):
+    """A mesh of several devices for one process cannot be made (a rank
+    validates on one device; data-parallel validation is
+    tests/test_torch_data_parallel.py's), and the default device raises where
+    no GPU exists."""
     config = small_config()
     model, dataset = build_model(config), ICBHIDataset(corpus, "val", config)
-    with pytest.raises(NotImplementedError, match="A10"):
-        Validator(model, dataset, config, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="one device"):
+        Validator(model, dataset, config, device="cpu", mesh=get_mesh(2, device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Validator(model, dataset, config)
