@@ -1,8 +1,7 @@
 """Train and eval steps: wav -> features -> loss -> update, on one device or
 one rank of a data-parallel mesh.
 
-Port of `audio_classification_icbhi_tpu/parallel/data_parallel.py:37-644`
-(the multi-step dispatch is ROADMAP.md A6):
+Port of `audio_classification_icbhi_tpu/parallel/data_parallel.py:37-644`:
 
 - the front end with the reference's augmentation order: wave-aug ->
   mel + dB -> SpecAugment mask -> normalize. On a CUDA tensor the mask and
@@ -36,6 +35,16 @@ Random numbers come from an explicit torch.Generator: the augmentation
 draws of every microbatch first (`ops/augment.draw_augment`), then the
 dropout masks in microbatch order. Tests inject the JAX package's draws
 instead.
+
+The fused multi-step epoch (`train_many`, `eval_many`: `:450-568` there)
+gathers its batches from the device-resident cache (`data/device_cache.py`),
+so only indices cross from the host. Step s of a `train_many` call draws
+from the generator the per-step path seeds for step step0 + s
+(`step_seed`), the counterpart of the JAX package's `fold_in(key, step0 +
+s)`, so the two paths train alike. Eval runs G = max(1, 128 // B) batches
+as one (G·B)-row forward. On a CUDA device one optimizer step, and one eval
+group, is a CUDA graph captured once and replayed per step
+(`parallel/step_graph.py`); on the CPU the same functions run eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch.data.device_cache import dequantize
 from audio_classification_icbhi_tpu_torch.ops import augment as aug_ops
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, normalize_spectrogram
 from audio_classification_icbhi_tpu_torch.parallel.mesh import (
@@ -53,21 +63,30 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     local_batch_slice,
 )
+from audio_classification_icbhi_tpu_torch.parallel.step_graph import GraphedStep
 
 GROWTH_INTERVAL = 2000  # torch GradScaler's default, as the JAX step uses
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           class_weights: torch.Tensor,
-                           mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(Σ w[y]·ce·mask, Σ w[y]·mask): the loss is their ratio, exactly
+                           class_weights: torch.Tensor, mask: torch.Tensor | None = None,
+                           dim: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ w[y]·ce·mask, Σ w[y]·mask) over `dim` of labels' shape (None:
+    every row): the loss is their ratio, exactly
     torch.nn.CrossEntropyLoss(weight=w) over the unmasked rows."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ce = -logp.gather(-1, labels[:, None].long())[:, 0]
+    ce = -logp.gather(-1, labels[..., None].long())[..., 0]
     w = class_weights[labels.long()]
     if mask is not None:
         w = w * mask
-    return torch.sum(w * ce), torch.sum(w)
+    return torch.sum(w * ce, dim), torch.sum(w, dim)
+
+
+def masked_correct(preds: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                   dim: int | None = None) -> torch.Tensor:
+    """The count of unmasked rows whose prediction is their label, over
+    `dim` (None: every row)."""
+    return torch.sum((preds == labels).float() * mask, dim)
 
 
 def features_from_wavs(frontend: MelFrontend, wavs: torch.Tensor, *,
@@ -107,18 +126,36 @@ def features_from_wavs_grouped(frontend: MelFrontend, wavs: torch.Tensor, *, aug
     return feats.reshape((a, b) + feats.shape[1:])
 
 
-def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
-    """x with rows of zeros appended up to n rows."""
-    return x if len(x) == n else np.concatenate([x, np.zeros((n - len(x),) + x.shape[1:],
-                                                             x.dtype)])
+def step_seed(seed: int, epoch: int, step: int, rank: int | None = None) -> int:
+    """The seed of one train step's generator, a function of (seed, epoch,
+    step) alone, and of the rank on a mesh of several."""
+    entropy = [seed, epoch, step] + ([] if rank is None else [rank])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
-def pad_eval_batch(wavs: np.ndarray, labels: np.ndarray, batch_size: int,
-                   rows: slice = slice(None)):
+def _pad_rows(x, n: int):
+    """x (a numpy array, or a tensor, padded on its device) with rows of
+    zeros appended up to n rows."""
+    if len(x) == n:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((n - len(x),) + tuple(x.shape[1:]))])
+    return np.concatenate([x, np.zeros((n - len(x),) + x.shape[1:], x.dtype)])
+
+
+def to_device(device: torch.device, x) -> torch.Tensor:
+    """A numpy array or a tensor, on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, non_blocking=True)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
+
+
+def pad_eval_batch(wavs, labels: np.ndarray, batch_size: int, rows: slice = slice(None)):
     """Pad a partial batch to batch_size with a validity mask, and take
     `rows` of it: a rank's rows, for which alone its loader decoded `wavs`
     (`labels` are the whole batch's). Returns (wavs, labels, mask,
-    real_count) as numpy arrays."""
+    real_count); wavs stay a tensor on their device where the loader gave
+    one (the device cache), the rest are numpy arrays."""
     b = len(labels)
     mask = (np.arange(batch_size) < b).astype(np.float32)[rows]
     return _pad_rows(wavs, len(mask)), _pad_rows(labels, batch_size)[rows], mask, b
@@ -137,6 +174,10 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float = 1.0) ->
 class TrainStepFns(NamedTuple):
     train_step: Callable
     eval_step: Callable
+    # the fused multi-step epoch; None under dynamic_loss_scale, as in the
+    # JAX package
+    train_many: Callable | None = None
+    eval_many: Callable | None = None
 
 
 def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Mesh | None) -> None:
@@ -175,13 +216,16 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
                   optimizer: torch.optim.Optimizer, *, accum_steps: int = 1,
                   augment: bool = False, max_grad_norm: float = 1.0,
                   accum_mode: str = "parallel", mesh: Mesh | None = None,
-                  dynamic_loss_scale: bool = False) -> TrainStepFns:
+                  dynamic_loss_scale: bool = False, seed: int = 42) -> TrainStepFns:
     """Train and eval steps over `model` and `optimizer`, updated in place.
 
     train_step(wavs (A, B, L), labels (A, B), class_weights (C,), lr,
                generator=None, draws=None[, scale_state]) -> metrics
         A ≤ accum_steps microbatches make one optimizer step; B is this
-        rank's rows (the whole batch without a mesh). Each microbatch's
+        rank's rows (the whole batch without a mesh). lr is a float, or a
+        0-d tensor on the device; Adam and AdamW built capturable always
+        take it as a device tensor, as their captured step reads it at each
+        replay. Each microbatch's
         loss is its weighted mean over the global batch; its gradient is
         added divided by accum_steps. `draws` (a list of A AugmentDraws)
         replaces the augmentation draws from `generator`; dropout masks
@@ -193,6 +237,35 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         (the skip is decided on the host, as GradScaler's is).
 
     eval_step: `make_eval_step`'s.
+
+    train_many(cache (N, L), idxs (K, A, B), labels (K, A, B),
+               class_weights, lr, epoch, step0) -> metrics
+        K optimizer steps on rows of the device cache (int16 or float32,
+        `data/device_cache.py`), each gathered on the device
+        (index_select, then dequantize) and trained as `train_step` trains
+        them, step s with the generator seeded `step_seed(seed, epoch,
+        step0 + s)`. idxs and labels are numpy or tensors. metrics: loss,
+        correct, count, grad_norm, each (K,) on the device.
+    eval_many(cache, idxs (S, B), labels (S, B), mask (S, B), class_weights)
+        -> (num (S,), den (S,), correct (S,), predictions (S, B))
+        per-batch sums and argmax predictions over masked rows, G = max(1,
+        128 // B) batches a forward, S padded to a multiple of G with
+        mask-0 rows that are cut off again.
+
+    On a CUDA device both replay CUDA graphs (`parallel/step_graph.py`): the
+    optimizer step is captured on its first call, after that call's first
+    step has run eagerly as the capture's warm-up, and again, with no
+    warm-up, when the cache, the class weights or the optimizer's state
+    tensors change (the graph holds them by address; a restored checkpoint
+    replaces the optimizer's state); the eval group once per cache and
+    class weights, the same way. Adam and AdamW
+    must be built `capturable` (`training/optimizers.build_optimizer`):
+    their step count lives on the device, and so does the learning rate, a
+    0-d tensor each call fills, so that a new rate (each epoch under
+    cosine) needs no new capture. SGD's foreach update takes the rate only
+    as a number, so its graph holds the rate it was captured at and is
+    captured again when the rate changes. Over a process group they raise:
+    the fused epoch runs on one rank (ROADMAP.md A6).
 
     The step runs one flattened front end over all A·B examples, then the
     model once per microbatch, in order. `accum_mode` is accepted for the
@@ -207,6 +280,9 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         raise ValueError(f"accum_mode must be scan|parallel, got {accum_mode!r}")
     params = [p for p in model.parameters() if p.requires_grad]
     dp = mesh if mesh is not None and mesh.group is not None else None
+    # Adam and AdamW built capturable take the rate as a device tensor
+    device_lr = bool(optimizer.param_groups) and all(
+        g.get("capturable", False) for g in optimizer.param_groups)
     ranks = mesh.world_size if dp is not None else 1
 
     def train_step(wavs: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
@@ -247,8 +323,12 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
             "correct": sums[a:].sum(),
             "count": torch.full((), float(a * b * ranks), device=wavs.device),
         }
+        if device_lr and not isinstance(lr, torch.Tensor):
+            # the rate as the captured step reads it: a float divides in
+            # other roundings, which bf16 weights turn into other losses
+            lr = torch.full((), float(lr), device=wavs.device)
         for group in optimizer.param_groups:
-            group["lr"] = float(lr)
+            group["lr"] = lr if isinstance(lr, torch.Tensor) else float(lr)
         if not dynamic_loss_scale:
             metrics["grad_norm"] = clip_by_global_norm(grads, max_grad_norm)
             optimizer.step()
@@ -265,7 +345,157 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         metrics["step_skipped"] = torch.full((), 0.0 if finite else 1.0, device=wavs.device)
         return metrics, scale_state
 
-    return TrainStepFns(train_step=train_step, eval_step=make_eval_step(model, frontend, mesh))
+    eval_step = make_eval_step(model, frontend, mesh)
+    if dynamic_loss_scale:
+        return TrainStepFns(train_step=train_step, eval_step=eval_step)
+
+    def gathered_step(cache, rows, class_weights, lr, generator):
+        """One optimizer step on rows (2, A, B) int64 (cache indices,
+        labels): (4,) loss, correct, count, grad_norm."""
+        a, b = rows.shape[1], rows.shape[2]
+        wavs = dequantize(cache.index_select(0, rows[0].reshape(-1))).reshape(a, b, -1)
+        m = train_step(wavs, rows[1], class_weights, lr, generator=generator)
+        return torch.stack([m["loss"], m["correct"], m["count"], m["grad_norm"]])
+
+    @torch.no_grad()
+    def eval_group(cache, rows, class_weights):
+        """Eval of rows (3, G, B) int64 (cache indices, labels, mask) as
+        one (G·B)-row forward: (G, 3 + B) float32, each batch's loss_num,
+        loss_den, correct and argmax predictions."""
+        g, b = rows.shape[1], rows.shape[2]
+        model.eval()
+        wavs = dequantize(cache.index_select(0, rows[0].reshape(-1)))
+        logits = model(features_from_wavs(frontend, wavs)).reshape(g, b, -1)
+        labels, mask = rows[1], rows[2].float()
+        num, den = weighted_cross_entropy(logits, labels, class_weights, mask, dim=-1)
+        preds = logits.argmax(-1)
+        sums = torch.stack([num, den, masked_correct(preds, labels, mask, dim=-1)], dim=1)
+        return torch.cat([sums, preds.float()], dim=1)
+
+    graphs: dict[str, GraphedStep] = {}
+    captures: list[tuple[str, float]] = []  # (kind, host seconds) of every capture
+    sides: dict[str, tuple] = {}  # kind -> (memory pool, capture stream)
+
+    def one_rank(what: str) -> None:
+        if dp is not None:
+            raise NotImplementedError(
+                f"{what} over a process group: the fused epoch runs on one rank (ROADMAP.md A6)")
+
+    def state_tensors() -> list[torch.Tensor]:
+        return [t for st in optimizer.state.values() for t in st.values() if torch.is_tensor(t)]
+
+    def graphed(kind: str, device: torch.device, key: Callable[[], tuple],
+                make: Callable) -> GraphedStep:
+        """The graph of `kind`, captured anew when key() changed, into the
+        memory pool and on the stream of the last one; the first capture
+        of a kind warms up first, on the call's first step."""
+        step = graphs.get(kind)
+        if step is not None and step.key == key():
+            return step
+        first = kind not in sides
+        if first:
+            sides[kind] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+        pool, stream = sides[kind]
+        step = make(pool=pool, stream=stream, warm=first)
+        step.key = key()  # after the capture: its warm-up may create optimizer state
+        graphs[kind] = step
+        captures.append((kind, step.capture_s))
+        return step
+
+    def took_first(step: GraphedStep, out: torch.Tensor) -> int:
+        """Where the replays start: 1 when the step's capture has just run
+        the call's first step as its warm-up (its output into out[0]), else
+        0."""
+        if step.first is None:
+            return 0
+        out[0].copy_(step.first)
+        step.first = None
+        return 1
+
+    def train_many(cache: torch.Tensor, idxs, labels, class_weights: torch.Tensor, lr,
+                   epoch: int, step0: int):
+        one_rank("train_many")
+        device = cache.device
+        rows = to_device(device, torch.stack([torch.as_tensor(idxs, dtype=torch.int64),
+                                              torch.as_tensor(labels, dtype=torch.int64)],
+                                             dim=1))
+        k = rows.shape[0]
+        seeds = [step_seed(seed, epoch, step0 + s) for s in range(k)]
+        out = torch.empty((k, 4), device=device)
+        if device.type != "cuda":
+            for s in range(k):
+                generator = torch.Generator(device=device).manual_seed(seeds[s])
+                out[s] = gathered_step(cache, rows[s], class_weights, lr, generator)
+        else:
+            # Adam and AdamW built capturable read the rate from the device
+            rate = torch.full((), float(lr), device=device) if device_lr else float(lr)
+
+            def make(pool, stream, warm):
+                # the warm-up is step 0, drawing what an eager step 0 draws
+                generator = torch.Generator(device=device).manual_seed(seeds[0])
+
+                def fn(r, *static_rate):  # the rate's static buffer, or none: SGD's is baked
+                    return gathered_step(cache, r, class_weights,
+                                         static_rate[0] if device_lr else rate, generator)
+
+                return GraphedStep(fn, [rows[0]] + ([rate] if device_lr else []), stream=stream,
+                                   warm=warm, generator=generator, pool=pool)
+
+            step = graphed("train", device, lambda: (
+                cache.data_ptr(), tuple(cache.shape), cache.dtype, tuple(rows.shape[1:]),
+                class_weights.data_ptr(), None if device_lr else rate,
+                tuple(t.data_ptr() for t in state_tensors())), make)
+            if device_lr:
+                step.static[1].copy_(rate)
+            for s in range(took_first(step, out), k):
+                step.generator.manual_seed(seeds[s])
+                out[s].copy_(step.replay(rows[s]))
+        return {"loss": out[:, 0], "correct": out[:, 1], "count": out[:, 2],
+                "grad_norm": out[:, 3]}
+
+    def eval_many(cache: torch.Tensor, idxs, labels, mask, class_weights: torch.Tensor):
+        one_rank("eval_many")
+        device = cache.device
+        idxs = torch.as_tensor(idxs, dtype=torch.int64)
+        s, b = idxs.shape
+        if s == 0:
+            z = torch.zeros(0, device=device)
+            return z, z, z, torch.zeros((0, b), dtype=torch.int64, device=device)
+        g = max(1, 128 // b)
+        rows = torch.stack([idxs, torch.as_tensor(labels, dtype=torch.int64),
+                            torch.as_tensor(mask).to(torch.int64)])  # (3, S, B)
+        pad = (-s) % g
+        if pad:  # repeated rows of the first batch, masked out
+            fill = rows[:, :1].expand(3, pad, b).clone()
+            fill[2] = 0
+            rows = torch.cat([rows, fill], dim=1)
+        n = rows.shape[1] // g
+        rows = to_device(device, rows.reshape(3, n, g, b).permute(1, 0, 2, 3).contiguous())
+        out = torch.empty((n, g, 3 + b), device=device)
+        if device.type != "cuda":
+            for i in range(n):
+                out[i] = eval_group(cache, rows[i], class_weights)
+        else:
+            def make(pool, stream, warm):
+                def fn(r):
+                    return eval_group(cache, r, class_weights)
+
+                return GraphedStep(fn, [rows[0]], stream=stream, warm=warm, pool=pool)
+
+            step = graphed("eval", device, lambda: (
+                cache.data_ptr(), tuple(cache.shape), cache.dtype, (g, b),
+                class_weights.data_ptr()), make)
+            for i in range(took_first(step, out), n):
+                out[i].copy_(step.replay(rows[i]))
+        out = out.reshape(n * g, 3 + b)[:s]
+        return out[:, 0], out[:, 1], out[:, 2], out[:, 3:].long()
+
+    # the captured steps by kind ("train", "eval") and every capture so far,
+    # for inspection
+    train_many.graphs = eval_many.graphs = graphs
+    train_many.captures = eval_many.captures = captures
+    return TrainStepFns(train_step=train_step, eval_step=eval_step, train_many=train_many,
+                        eval_many=eval_many)
 
 
 def make_eval_step(model: torch.nn.Module, frontend: MelFrontend,
@@ -283,7 +513,7 @@ def make_eval_step(model: torch.nn.Module, frontend: MelFrontend,
         model.eval()
         logits = model(features_from_wavs(frontend, wavs))
         num, den = weighted_cross_entropy(logits, labels, class_weights, mask)
-        correct = torch.sum((logits.argmax(-1) == labels).float() * mask)
+        correct = masked_correct(logits.argmax(-1), labels, mask)
         if dp is not None:
             num, den, correct = all_reduce_sum(torch.stack([num, den, correct]), dp)
             logits = all_gather_rows(logits, dp)
@@ -294,20 +524,19 @@ def make_eval_step(model: torch.nn.Module, frontend: MelFrontend,
 
 def eval_batches(eval_step: Callable, loader, batch_size: int, device: torch.device,
                  class_weights: torch.Tensor, mesh: Mesh | None = None):
-    """The eval pass over `loader`'s (wavs, labels) numpy batches, each
-    padded to batch_size with a mask (`pad_eval_batch`) and run through
-    `eval_step` on `device`. On a mesh of several ranks (batch_size a
+    """The eval pass over `loader`'s (wavs, labels) batches (numpy, or
+    wavs already on the device from the device cache), each padded to
+    batch_size with a mask (`pad_eval_batch`) and run through `eval_step` on
+    `device`. On a mesh of several ranks (batch_size a
     multiple of them), the loader decodes only this rank's rows of each
     batch (`BatchLoader(shard=...)`) and gives every row's label; the rank
     runs its rows of the padded batch. Yields, a batch, (logits of the real
     rows on the device, loss_num, loss_den, correct, the real rows' labels
     as numpy)."""
-    def to_device(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
-
     rows = local_batch_slice(batch_size, mesh)  # every row without a mesh
     for wavs, labels in loader:
         wavs, padded, mask, b = pad_eval_batch(wavs, labels, batch_size, rows)
-        logits, num, den, correct = eval_step(to_device(wavs), to_device(padded).long(),
-                                              to_device(mask), class_weights)
+        logits, num, den, correct = eval_step(to_device(device, wavs),
+                                              to_device(device, padded).long(),
+                                              to_device(device, mask), class_weights)
         yield logits[:b], num, den, correct, labels

@@ -31,8 +31,23 @@ steps at the start) rides in the checkpoint as a float64 pair
 (`scale_state`, `:832-838` there), so either trainer resumes the other's
 fp16 run exactly.
 
-Not here yet: the device-resident cache and fused epoch (ROADMAP.md A6),
-orbax (A4).
+`data.cache_on_device` (the JAX trainer's `:102-127`, `:365-580`) decodes
+both splits once into device-resident caches (`data/device_cache.py`) and,
+unless `training.steps_per_dispatch` is 1, trains and validates through the
+fused multi-step epoch: one `train_many` call over the epoch's full
+accumulation groups, the tail group (fewer than accum_steps batches)
+through one `train_step` on gathered rows, then one `eval_many` call over
+every val batch, the tail batch mask-padded; the metrics cross to the host
+once an epoch. Any steps_per_dispatch other than 1 (absent, 0 or K) runs
+the whole epoch a call: in the JAX package K sizes the scanned program,
+here every step is a graph replay of its own whatever K is. On a
+CUDA device each step and each eval group is a replayed CUDA graph, and
+Adam is built `capturable`. Where the trainer has a process group the cache
+is turned off, as the JAX trainer turns it off over several processes.
+The fp16 loss-scaled step has no fused form, as in the JAX package: it runs
+per step on the cache.
+
+Not here yet: orbax (ROADMAP.md A4).
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch.data.device_cache import DeviceCachedLoader
 from audio_classification_icbhi_tpu_torch.data.loader import BatchLoader
 from audio_classification_icbhi_tpu_torch.models.registry import compute_dtype
 from audio_classification_icbhi_tpu_torch.models.weights import (
@@ -56,6 +72,8 @@ from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     eval_batches,
     make_step_fns,
+    step_seed,
+    to_device,
 )
 from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     Mesh,
@@ -78,13 +96,6 @@ from audio_classification_icbhi_tpu_torch.utils.config import (
     resolve_device,
 )
 from audio_classification_icbhi_tpu_torch.utils.tensorboard import SummaryWriter
-
-
-def step_seed(seed: int, epoch: int, step: int, rank: int | None = None) -> int:
-    """The seed of one train step's generator, a function of (seed, epoch,
-    step) alone, and of the rank on a mesh of several."""
-    entropy = [seed, epoch, step] + ([] if rank is None else [rank])
-    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 class _NoWriter:
@@ -143,11 +154,30 @@ class Trainer:
 
         self.frontend = MelFrontend.from_config(config)
         self.class_weights = torch.as_tensor(self._calculate_class_weights(), device=self.device)
-        # each rank decodes only its rows of the same seeded batches
-        shard = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
-        self.train_loader = BatchLoader(train_dataset, self.batch_size, shuffle=True,
-                                        drop_last=True, seed=self.seed, shard=shard)
-        self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False, shard=shard)
+        dcfg = config["data"]
+        self.cache_on_device = bool(dcfg.get("cache_on_device", False))
+        if self.cache_on_device and mesh is not None and mesh.group is not None:
+            print("cache_on_device: disabled under multi-host training "
+                  "(the fused dispatch paths are single-controller); "
+                  "using the per-step host loader.")
+            self.cache_on_device = False
+        if self.cache_on_device:
+            # decode once, keep the waveforms on the device, ship only indices
+            cache_dtype = dcfg.get("cache_dtype", "auto")
+            self.train_loader = DeviceCachedLoader(
+                train_dataset, self.batch_size, device=self.device, shuffle=True,
+                drop_last=True, seed=self.seed, cache_dtype=cache_dtype)
+            self.val_loader = DeviceCachedLoader(val_dataset, self.batch_size, device=self.device,
+                                                 shuffle=False, cache_dtype=cache_dtype)
+            mb = (self.train_loader.nbytes + self.val_loader.nbytes) / 1e6
+            print(f"Device cache: {mb:.0f} MB of waveforms resident on {self.device}")
+        else:
+            # each rank decodes only its rows of the same seeded batches
+            shard = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
+            self.train_loader = BatchLoader(train_dataset, self.batch_size, shuffle=True,
+                                            drop_last=True, seed=self.seed, shard=shard)
+            self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False,
+                                          shard=shard)
 
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         if config["model"].get("pretrained", False):
@@ -156,8 +186,10 @@ class Trainer:
         if mesh is not None:
             replicate(mesh, self.model.state_dict().values())
         self.optimizer_name = tcfg.get("optimizer", "adam")
-        self.optimizer = build_optimizer(self.optimizer_name, self.model.named_parameters(),
-                                         tcfg.get("weight_decay", 0.0))
+        # the fused epoch captures the optimizer step in a CUDA graph
+        self.optimizer = build_optimizer(
+            self.optimizer_name, self.model.named_parameters(), tcfg.get("weight_decay", 0.0),
+            capturable=self.cache_on_device and self.device.type == "cuda")
         self.scheduler = build_scheduler(
             tcfg.get("scheduler"), self.learning_rate, self.epochs,
             plateau_mode=self.plateau_mode,
@@ -175,6 +207,7 @@ class Trainer:
             accum_mode=tcfg.get("accum_mode", "parallel"),
             mesh=mesh,
             dynamic_loss_scale=self.dynamic_loss_scale,
+            seed=self.seed,
         )
 
         self.checkpoint_dir = Path(tcfg.get("checkpoint_dir", "checkpoints"))
@@ -241,32 +274,100 @@ class Trainer:
             print(f"  {name}: {int(count)} samples (weight: {weight:.3f})")
         return weights.astype(np.float32)
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device, non_blocking=True)
+    def _to_device(self, x) -> torch.Tensor:
+        return to_device(self.device, x)
 
     # ------------------------------------------------------------------ epochs
 
     def _grouped_batches(self, loader):
         """Yield (wavs (A, B, L), labels (A, B)) accumulation groups; a
-        partial tail group (fewer than accum_steps batches) is yielded too."""
+        partial tail group (fewer than accum_steps batches) is yielded too.
+        The device cache's batches stack on the device."""
         buf_w, buf_l = [], []
+
+        def stack(ws, ls):
+            return (torch.stack(ws) if isinstance(ws[0], torch.Tensor) else np.stack(ws),
+                    np.stack(ls))
+
         for wavs, labels in loader:
             buf_w.append(wavs)
             buf_l.append(labels)
             if len(buf_w) == self.accum_steps:
-                yield np.stack(buf_w), np.stack(buf_l)
+                yield stack(buf_w, buf_l)
                 buf_w, buf_l = [], []
         if buf_w:
-            yield np.stack(buf_w), np.stack(buf_l)
+            yield stack(buf_w, buf_l)
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         rank = self.mesh.rank if self.mesh is not None and self.mesh.world_size > 1 else None
         return torch.Generator(device=self.device).manual_seed(
             step_seed(self.seed, epoch, step, rank))
 
+    def _fused_dispatch(self) -> bool:
+        """training.steps_per_dispatch is not 1: absent, 0 or any K runs the
+        whole epoch in one call."""
+        return int(self.config["training"].get("steps_per_dispatch", 0)) != 1
+
+    def _use_multi_dispatch(self) -> bool:
+        """The fused epoch: the cache is on the device, the step has a fused
+        form (not the fp16 loss-scaled one) and `_fused_dispatch`."""
+        return (self.steps.train_many is not None
+                and isinstance(self.train_loader, DeviceCachedLoader)
+                and self._fused_dispatch())
+
+    def _use_fused_eval(self) -> bool:
+        """Fused validation: the same rule, keyed on the val loader."""
+        return (self.steps.eval_many is not None
+                and isinstance(self.val_loader, DeviceCachedLoader)
+                and self._fused_dispatch())
+
+    @staticmethod
+    def _epoch_summary(losses, corrects, counts) -> tuple[float, float]:
+        """(mean step loss, accuracy %) of an epoch's per-step device
+        metrics, read from the device in one copy."""
+        packed = torch.stack([torch.cat(losses).mean(), torch.cat(corrects).sum(),
+                              torch.cat(counts).sum()]).cpu().numpy()
+        return float(packed[0]), 100.0 * float(packed[1]) / max(float(packed[2]), 1.0)
+
+    def _train_epoch_fused(self, epoch: int, lr: float) -> tuple[float, float]:
+        """The epoch's full accumulation groups through one `train_many`
+        call against the device cache; the tail group through one
+        `train_step`. Step g draws from the generator the per-step path
+        gives group g, so both paths train alike."""
+        loader = self.train_loader
+        idxs = loader.epoch_index_batches()  # (S, B)
+        s_total = idxs.shape[0]
+        if s_total == 0:
+            return 0.0, 0.0
+        labels = loader.labels_all[idxs]
+        a, bsz = self.accum_steps, self.batch_size
+        groups = s_total // a
+        losses, corrects, counts = [], [], []
+        if groups:
+            sl = slice(0, groups * a)
+            m = self.steps.train_many(loader.cache, idxs[sl].reshape(groups, a, bsz),
+                                      labels[sl].reshape(groups, a, bsz), self.class_weights,
+                                      lr, epoch, 0)
+            losses.append(m["loss"])
+            corrects.append(m["correct"])
+            counts.append(m["count"])
+        tail = s_total - groups * a
+        if tail:
+            sl = slice(groups * a, s_total)
+            m = self.steps.train_step(
+                loader.gather(idxs[sl].reshape(tail, bsz)),
+                self._to_device(labels[sl].reshape(tail, bsz)).long(), self.class_weights, lr,
+                generator=self.step_generator(epoch, groups))
+            losses.append(m["loss"][None])
+            corrects.append(m["correct"][None])
+            counts.append(m["count"][None])
+        return self._epoch_summary(losses, corrects, counts)
+
     def train_epoch(self, epoch: int) -> tuple[float, float]:
         self.train_loader.set_epoch(epoch)
         lr = float(self.scheduler.lr)
+        if self._use_multi_dispatch():
+            return self._train_epoch_fused(epoch, lr)
         step_metrics = []
         for step_idx, (wavs, labels) in enumerate(self._grouped_batches(self.train_loader)):
             # on a mesh the loader decoded this rank's rows alone, and gave
@@ -284,16 +385,44 @@ class Trainer:
             step_metrics.append(metrics)
         if not step_metrics:
             return 0.0, 0.0
-        packed = torch.stack([  # one device->host copy for the epoch
-            torch.stack([m["loss"] for m in step_metrics]).mean(),
-            torch.stack([m["correct"] for m in step_metrics]).sum(),
-            torch.stack([m["count"] for m in step_metrics]).sum(),
-        ]).cpu().numpy()
-        return float(packed[0]), 100.0 * float(packed[1]) / max(float(packed[2]), 1.0)
+        return self._epoch_summary(*([m[k][None] for m in step_metrics]
+                                     for k in ("loss", "correct", "count")))
+
+    def _validate_fused(self) -> tuple[float, float]:
+        """The whole val epoch through one `eval_many` call, the tail batch
+        padded to batch_size with mask-0 rows (index 0) inside the same
+        call; read from the device once (twice with collect_predictions).
+        The loss is the mean of the per-batch criterion values, as on the
+        per-batch path."""
+        loader = self.val_loader
+        batches = loader._batch_indices()  # loader order: full batches, then the tail
+        if not batches:
+            if self.collect_predictions:
+                self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+            return 0.0, 0.0
+        bsz = self.batch_size
+        counts = np.asarray([len(b) for b in batches])
+        idxs = np.zeros((len(batches), bsz), np.int64)
+        mask = np.zeros((len(batches), bsz), np.float32)
+        for i, bidx in enumerate(batches):
+            idxs[i, :len(bidx)] = bidx
+            mask[i, :len(bidx)] = 1.0
+        labels = loader.labels_all[idxs]  # pad rows' labels are masked out
+        num, den, corr, pred = self.steps.eval_many(loader.cache, idxs, labels, mask,
+                                                    self.class_weights)
+        packed = torch.stack([num, den, corr]).cpu().numpy()  # (3, S)
+        if self.collect_predictions:
+            real = mask.astype(bool)
+            self.val_predictions = (labels[real].astype(np.int64),
+                                    pred.cpu().numpy()[real].astype(np.int64))
+        val_loss = float(np.mean(packed[0] / np.maximum(packed[1], 1e-12)))
+        return val_loss, 100.0 * float(packed[2].sum()) / max(float(counts.sum()), 1.0)
 
     def validate(self, epoch: int) -> tuple[float, float]:
         """One pass over the val loader; with collect_predictions the same
         pass records (y_true, y_pred) in self.val_predictions."""
+        if self._use_fused_eval():
+            return self._validate_fused()
         sums, total = [], 0.0
         kept_preds, kept_labels = [], []
         for logits, num, den, corr, labels in eval_batches(

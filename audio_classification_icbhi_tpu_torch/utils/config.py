@@ -75,14 +75,10 @@ def load_config(config_path: str | None = None) -> dict[str, Any]:
 # Config options this port does not carry yet, with their ROADMAP.md rows.
 # Each raises NotImplementedError where it is asked for; none falls back.
 def check_ported_options(config: dict[str, Any]) -> None:
-    data, train = config.get("data", {}), config.get("training", {})
+    train = config.get("training", {})
     asked = [
-        (data.get("cache_on_device", False),
-         "data.cache_on_device (the device-resident waveform cache, ROADMAP.md A6)"),
         (train.get("checkpoint_format", "msgpack") == "orbax",
          "training.checkpoint_format: orbax (ROADMAP.md A4)"),
-        (train.get("steps_per_dispatch", 1) != 1,
-         "training.steps_per_dispatch (the fused multi-step epoch, ROADMAP.md A6)"),
     ]
     for on, what in asked:
         if on:

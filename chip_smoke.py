@@ -172,6 +172,22 @@ toolkit. Phases:
    at config.yaml on the NCCL mesh and in fp16 beside the plain bf16 step
    (CUDA events, host launch calls, profiler busy time). Its row-1 and
    row-2 launches add to the kernels line.
+23. the device-resident waveform cache and the fused multi-step epoch
+   (`train_many` / `eval_many`, each step and eval group a replayed CUDA
+   graph): phase 8's lr-1 SGD step through `train_many` (the capture's
+   eager warm-up) against phase 8's eager steps on the card and the CPU by
+   its bound, then a replay at lr 1 and a re-capture's replay at lr 0.5,
+   each against an eager step from the same state;
+   `Trainer` at config.yaml with `data.cache_on_device` at
+   steps_per_dispatch 1 and 0 for 3 epochs on phase 9's corpus cut to
+   294 / 63 clips (4 full optimizer steps and a tail group, a tail val
+   batch), the fused losses within rtol 1e-4 of the per-step ones, epoch
+   ms; the captured graphs' nodes (the masked row-1 kernel in the train
+   graph, the inference form in the eval graph, through libcuda) and the
+   launches one replay counts; the cache's MB, decode and upload ms; host
+   calls a step, per step and fused, and the eager step's device records
+   (kernels, copies, fills); the graphed step's and eval group's device
+   ms. Its row-1 launches add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -212,6 +228,7 @@ from audio_classification_icbhi_tpu_torch import validate_icbhi
 from audio_classification_icbhi_tpu_torch.analyzers import AnalyzerEngine
 from audio_classification_icbhi_tpu_torch.data.dataset import ICBHIDataset
 from audio_classification_icbhi_tpu_torch.data.dataset_segmented import ICBHISegmentedDataset
+from audio_classification_icbhi_tpu_torch.data.device_cache import DeviceCachedLoader
 from audio_classification_icbhi_tpu_torch.data.synthetic import (
     generate_icbhi_corpus_fixture,
     generate_icbhi_dataset,
@@ -248,6 +265,7 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     get_mesh,
     init_distributed,
 )
+from audio_classification_icbhi_tpu_torch.parallel.step_graph import launch_counters
 from audio_classification_icbhi_tpu_torch.step_floor import (
     param_arrays,
     step_floor,
@@ -491,10 +509,12 @@ def main() -> int:
         print(f"phase 2: {name} -> {path}\n{log.strip()}")
 
     # Phase 3: kernel vs its plain version (f64) on the card, at the serving
-    # shape, at validation's (batch 32 of 3 s and 8 s clips), at phase 22's
-    # fp16 step (8 clips of 2 s) and an odd one
+    # shape, at validation's (batch 32 of 3 s and 8 s clips), at phase 23's
+    # eval group (128 rows of 8 s), at phase 22's fp16 step (8 clips of 2 s)
+    # and an odd one
     errs = []
-    for b, length in ((BATCH, CLIP), (32, SEG_CLIP), (32, TRAIN_CLIP), (8, 2 * SR), (3, 16320)):
+    for b, length in ((BATCH, CLIP), (32, SEG_CLIP), (32, TRAIN_CLIP), (128, TRAIN_CLIP),
+                      (8, 2 * SR), (3, 16320)):
         x = (0.1 * rng.standard_normal((b, length))).astype(np.float32)
         x[1] *= 20.0  # one loud example: the epilogue is per example
         xt = torch.from_numpy(x).to(dev)
@@ -643,6 +663,7 @@ def main() -> int:
         resnet = phase20_resnet(dev, rng, card, Path(tmp), corpus, recording)
         segmented = phase21_segmented(dev, rng, card, Path(tmp), corpus)
         parallel = phase22_data_parallel(dev, rng, card, Path(tmp), corpus, recording, sgd_step)
+        fused = phase23_fused_epoch(dev, rng, card, Path(tmp), corpus, sgd_step)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -651,9 +672,10 @@ def main() -> int:
         mixed[alg]["launches"] = n
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
-    serving["launches"] += resnet["inference"] + segmented["inference"] + parallel["inference"]
+    serving["launches"] += (resnet["inference"] + segmented["inference"] + parallel["inference"]
+                            + fused["inference"])
     training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
-                    + parallel["masked"], max_abs_err=masked_err)
+                    + parallel["masked"] + fused["masked"], max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
               max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
@@ -937,7 +959,8 @@ def phase10_timings(dev, rng, card: str, corpus: Path, tmp: Path) -> dict:
     print(f"phase 10: [{card}] traced {steps} steps: device busy "
           f"{busy_us / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall "
           f"({100 * busy_us / wall_us:.1f}%), "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches a step")
+          f"{sum(e.count for e in kernels) / steps:.0f} device records a step (kernels, "
+          f"copies and fills: phase 23 splits them)")
     for e in kernels[:12]:
         print(f"phase 10:   {e.self_device_time_total / steps:9.1f} us/step "
               f"{e.count // steps:3d}x  {e.key[:90]}")
@@ -1430,11 +1453,8 @@ def conv_counts() -> dict[str, int]:
 
 
 def zero_counts() -> None:
-    for name in CONV_WRAPPERS:
-        getattr(ck, name).launches = 0
-    for fn in mel_kernels.WRAPPERS.values():
-        fn.launches = fn.launches_masked = 0
-    mel_kernels.log_mel_epilogue.launches = 0
+    for fn, attr in launch_counters():
+        setattr(fn, attr, 0)
 
 
 # the epilogue's launches over every main-path run (`read_epilogue`)
@@ -2227,15 +2247,20 @@ GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph"
 
 
 def graph_nodes(fn) -> tuple[list[tuple[str, str | None]], torch.Tensor]:
-    """Capture fn() (warm) into a CUDA graph and list its nodes through
-    libcuda's graph calls: (type, the kernel's symbol for a kernel node),
-    in the graph's order; then replay it and return its output. Fails
-    where libcuda cannot name a kernel node."""
+    """Capture fn() (warm) into a CUDA graph and list its nodes
+    (`list_graph_nodes`); then replay it and return its output."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         out = fn()
     graph.replay()
     torch.cuda.synchronize()
+    return list_graph_nodes(graph), out
+
+
+def list_graph_nodes(graph: torch.cuda.CUDAGraph) -> list[tuple[str, str | None]]:
+    """The nodes of a CUDA graph captured with keep_graph=True, through
+    libcuda's graph calls: (type, the kernel's symbol for a kernel node),
+    in the graph's order. Fails where libcuda cannot name a kernel node."""
     cuda = ctypes.CDLL("libcuda.so.1")
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
@@ -2258,7 +2283,7 @@ def graph_nodes(fn) -> tuple[list[tuple[str, str | None]], torch.Tensor]:
                   "libcuda names the kernel node")
             name = text.value.decode()
         nodes.append((GRAPH_NODE_TYPES.get(kind.value, str(kind.value)), name))
-    return nodes, out
+    return nodes
 
 
 def serving_speed(engine: ClassifierEngine, x: torch.Tensor, host_clip: np.ndarray,
@@ -2796,16 +2821,18 @@ def cnn_conv_gflop(h: int, w: int) -> float:
 
 def launch_calls(fn, steps: int) -> float:
     """Kernel launches a call, counted on the host: the launch calls
-    (cudaLaunchKernel, cuLaunchKernel and their Ex forms) the profiler
-    records around `steps` calls (host records, which the device-record
-    losses of PERF.md §7 do not touch)."""
+    (cudaLaunchKernel, cuLaunchKernel, their Ex forms and
+    cudaLaunchCooperativeKernel) the profiler records around `steps` calls
+    (host records, which the device-record losses of PERF.md §7 do not
+    touch)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key) / steps
+    return sum(e.count for e in prof.key_averages()
+               if "Launch" in e.key and "Kernel" in e.key) / steps
 
 
 def train_step_times(cfg: dict, dev, rng, a: int, b: int, clip: int) -> tuple[float, float, float]:
@@ -3691,6 +3718,322 @@ def phase22_data_parallel(dev, rng, card: str, tmp: Path, corpus: Path, recordin
             check(k16.launches == 1 and k8.launches == 0, "1 s windows ran row 1")
             launches["inference"] += k16.launches
     print(f"phase 22: row 1 and row 2 launches over the phase's main paths {launches}")
+    return launches
+
+
+# phase 23: the fused epoch. ICBHI's whole-recording split cut to 294 train
+# clips (9 batches of 32: 4 accumulation groups of 2 and a tail group of one
+# batch) and 63 val clips (a full batch and a tail batch of 31)
+P23_TRAIN, P23_VAL, P23_EPOCHS = 294, 63, 3
+RADIX8_STEMS = ("log_mel_radix8dif_kernel", "log_mel_epilogue_kernel")
+
+
+class HeldClips:
+    """A dataset over clips already in memory, as the loaders read one."""
+
+    def __init__(self, clips: np.ndarray, labels: np.ndarray):
+        self.clips, self.labels = clips, labels.astype(np.int32)
+        self.target_length = clips.shape[-1]
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.clips[i], int(self.labels[i])
+
+
+def host_calls(fn, steps: int) -> dict[str, float]:
+    """CUDA calls on the host a step (cuda* and cu*), by name, that put
+    work on the card (kernel and graph launches, copies, fills), from the
+    profiler's host records around `steps` steps' worth of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / steps for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+            and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
+
+
+def device_records(fn, steps: int) -> dict[str, float]:
+    """The profiler's device records a step, by kind: kernels, copies and
+    fills (what phase 10 summed as "kernel launches a step")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"kernels": 0, "copies": 0, "fills": 0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("Optimizer."):
+            continue
+        kind = "copies" if e.key.startswith("Memcpy") else "fills" if e.key.startswith(
+            "Memset") else "kernels"
+        kinds[kind] += e.count / steps
+    return kinds
+
+
+def radix8_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, dict[str, int]]:
+    """A captured graph's kernel nodes, and how many are the radix-8
+    spectrum kernel and the epilogue."""
+    nodes = list_graph_nodes(graph)
+    return (sum(kind == "kernel" for kind, _ in nodes),
+            {stem: sum(1 for _, name in nodes if name and stem in name) for stem in RADIX8_STEMS})
+
+
+def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
+                        sgd: dict) -> dict[str, int]:
+    """The device-resident cache and the fused multi-step epoch on the card,
+    the launch counts zeroed before and read after each main-path run (a
+    replayed graph adds its row-1 launches at each replay):
+    (a) phase 8's lr-1 SGD step (config.yaml, 2 x 8 x 8 s, fp32) through
+    `train_many` on a cache of its clips, the capture's eager warm-up,
+    against phase 8's steps on the card and the CPU by its `step_floor`;
+    then a second step at lr 1, a replay of that capture, and a third at lr
+    0.5, a re-capture (SGD's graph holds its rate) and its replay, each
+    against an eager step on the card from the same state by that bound;
+    (b) `Trainer` at config.yaml (bf16, Adam, augmentation and dropout on)
+    with `data.cache_on_device` at steps_per_dispatch 1 (per step, on the
+    cache) and 0 (the whole epoch a call), three epochs each on phase 9's
+    corpus cut to 294 / 63 clips: the fused histories within rtol 1e-4 of
+    the per-step one; each epoch's wall time; the train graph's nodes
+    (the masked row-1 kernel and the epilogue once) and the eval graph's
+    (the inference form, 128 rows); (c) the cache's MB, its one-time decode
+    and its upload; host calls a step, per step and fused; the device
+    records of an eager step (kernels, copies, fills); the graphed step's
+    and eval group's device ms (replays back to back); the step by CUDA
+    events per step and fused. Returns row 1's launches ("inference",
+    "masked")."""
+    import copy
+
+    k16 = mel_kernels.log_mel_radix16dif_fused
+    launches = {"inference": 0, "masked": 0}
+
+    # (a) phase 8's lr-1 SGD step through train_many: the first call's step
+    # is the capture's eager warm-up, the second a replay, the third (a new
+    # rate, which SGD's graph bakes in) a re-capture's replay
+    a, b = 2, 8
+    clips = sgd["wavs"].reshape(a * b, -1).numpy()
+    labels = sgd["labels"].reshape(-1).numpy()
+    loader = DeviceCachedLoader(HeldClips(clips, labels), b, device=dev)
+    check(loader.cache.dtype == torch.float32, "float clips off the PCM16 grid stay float32")
+    cw = sgd["cw"].to(dev)
+
+    def sgd_model(state=None):
+        model = LightweightCNN()
+        model.load_state_dict(sgd["init"] if state is None else state[0])
+        model.to(dev).set_dropout(0.0)
+        opt = build_optimizer("sgd", model.named_parameters(), 1e-4)
+        if state is not None:
+            opt.load_state_dict(copy.deepcopy(state[1]))
+        return model, opt
+
+    model, opt = sgd_model()
+    fns = make_step_fns(model, sgd["fe"], opt, accum_steps=a)
+    zero_counts()
+    steps = []  # (lr, state before, metrics, params after, captures, graph, its replays)
+    for lr in (1.0, 1.0, 0.5):
+        before = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                  copy.deepcopy(opt.state_dict()))
+        m = fns.train_many(loader.cache, np.arange(a * b).reshape(1, a, b),
+                           labels.reshape(1, a, b), cw, lr, 0, 0)
+        graph = fns.train_many.graphs["train"]
+        steps.append((lr, before, {k: float(v[0]) for k, v in m.items()}, param_arrays(model),
+                      [kind for kind, _ in fns.train_many.captures], graph, graph.replays))
+    torch.cuda.synchronize()
+    read_epilogue("phase 23 SGD steps")
+    counts = (k16.launches, k16.launches_masked)
+    per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in steps[0][5].kernel_launches.items()}
+    print(f"phase 23: three lr-1/1/0.5 SGD steps through train_many: row-1 launches {counts[0]} "
+          f"(the warm-up step's and two replays'), a replay's counted launches {per_replay}; "
+          f"captures after each call {[st[4] for st in steps]}, the graph's replays "
+          f"{[st[6] for st in steps]}")
+    check(counts == (3, 0) and per_replay == {"log_mel_radix16dif_fused.launches": 1,
+                                              "log_mel_epilogue.launches": 1},
+          "the captured SGD step holds row 1 once, counted per replay")
+    check([st[4] for st in steps] == [["train"], ["train"], ["train", "train"]]
+          and steps[1][5] is steps[0][5] and steps[2][5] is not steps[0][5]
+          and [st[6] for st in steps] == [0, 1, 1],
+          "SGD: warm-up step, a replay, a re-capture at the new rate and its replay")
+    launches["inference"] += counts[0]
+    lr, _, m, got, *_ = steps[0]
+    vs_card = step_margins((got, m["grad_norm"]), sgd["card"], sgd["floor"])
+    vs_cpu = step_margins((got, m["grad_norm"]), sgd["cpu"], sgd["floor"])
+    loss_err = abs(m["loss"] - sgd["card_loss"]) / abs(sgd["card_loss"])
+    print(f"phase 23: the warm-up step: loss {m['loss']:.6f} (rel {loss_err:.2e} from phase 8's "
+          f"eager step, tol 1e-5); params worst |d| over phase 8's bound {vs_card.params:.3f} "
+          f"against the card's eager step, {vs_cpu.params:.3f} against the CPU's; grad norm "
+          f"{vs_card.grad_norm:.3f} / {vs_cpu.grad_norm:.3f}")
+    check(loss_err <= 1e-5, "warm-up step loss")
+    check(vs_card.ok and vs_cpu.ok, f"warm-up step params ({vs_card}; {vs_cpu})")
+    for what, (lr, before, m, got, *_) in (("replay", steps[1]), ("re-capture's replay",
+                                                                  steps[2])):
+        ref_model, ref_opt = sgd_model(before)
+        ref = make_step_fns(ref_model, sgd["fe"], ref_opt, accum_steps=a).train_step(
+            sgd["wavs"].to(dev), sgd["labels"].to(dev), cw, lr)
+        ref_loss = float(ref["loss"])
+        margins = step_margins((got, m["grad_norm"]),
+                               (param_arrays(ref_model), float(ref["grad_norm"])), sgd["floor"])
+        loss_err = abs(m["loss"] - ref_loss) / abs(ref_loss)
+        print(f"phase 23: the {what} at lr {lr:g}: loss {m['loss']:.6f} (rel {loss_err:.2e} from "
+              f"an eager step from the same state, tol 1e-5); params worst |d| over phase 8's "
+              f"bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f}")
+        check(loss_err <= 1e-5, f"SGD {what} loss")
+        check(margins.ok, f"SGD {what} params ({margins})")
+
+    # (b) the Trainer on the cache: per step, and fused
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["data"].update(dataset_path=str(corpus), cache_on_device=True)
+
+    def datasets():
+        train = quiet(ICBHIDataset, corpus, "train", cfg, augment=True)
+        val = quiet(ICBHIDataset, corpus, "val", cfg)
+        train.data, val.data = train.data[:P23_TRAIN], val.data[:P23_VAL]
+        return train, val
+
+    runs = {}
+    for spd in (1, 0):
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["training"].update(steps_per_dispatch=spd,
+                                   checkpoint_dir=str(tmp / f"p23_{spd}" / "ckpt"),
+                                   log_dir=str(tmp / f"p23_{spd}" / "runs"))
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = quiet(Trainer, build_model(run_cfg), *datasets(), run_cfg, device="cuda")
+        build_s = time.perf_counter() - t0
+        check(isinstance(trainer.train_loader, DeviceCachedLoader)
+              and trainer._use_multi_dispatch() == (spd != 1)
+              and trainer._use_fused_eval() == (spd != 1), f"steps_per_dispatch {spd}'s path")
+        hist = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
+        times = []
+        for epoch in range(P23_EPOCHS):
+            t0 = time.perf_counter()
+            tl, ta = trainer.train_epoch(epoch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vl, va = trainer.validate(epoch)
+            torch.cuda.synchronize()
+            times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            trainer.scheduler.step(vl)
+            for k, v in zip(hist, (tl, vl, ta, va)):
+                hist[k].append(v)
+        read_epilogue(f"phase 23 trainer at steps_per_dispatch {spd}")
+        counts = (k16.launches, k16.launches_masked)
+        check(counts[0] > 0 and counts[1] > 0 and all(
+            fn.launches + fn.launches_masked == 0 for name, fn in mel_kernels.WRAPPERS.items()
+            if name != "radix16dif_fused"), f"steps_per_dispatch {spd} ran row 1, both forms")
+        launches["inference"] += counts[0]
+        launches["masked"] += counts[1]
+        caps = trainer.steps.train_many.captures
+        if spd != 1:  # Adam reads its rate from the device: one capture of each for all epochs
+            check(sorted(kind for kind, _ in caps) == ["eval", "train"],
+                  f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
+        runs[spd] = dict(trainer=trainer, hist=hist, times=times, counts=counts, build_s=build_s)
+        print(f"phase 23: [{card}] Trainer at config.yaml, cache on, steps_per_dispatch {spd} "
+              f"({'per step' if spd == 1 else 'fused'}), {P23_EPOCHS} epochs of "
+              f"{len(trainer.train_dataset)} / {len(trainer.val_dataset)} clips: train + "
+              f"validate ms by epoch " + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
+              + f"; built in {build_s:.2f} s (the caches decoded); captures (warm-up "
+              f"included) " + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+              + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
+              f"{counts[1]} masked (training)")
+    for spd in (0,):
+        err = max(abs(x - y) / abs(y) for k in ("train_loss", "val_loss")
+                  for x, y in zip(runs[spd]["hist"][k], runs[1]["hist"][k]))
+        print(f"phase 23: steps_per_dispatch {spd} against per step: losses max rel {err:.2e} "
+              f"(tol 1e-4)")
+        check(err <= 1e-4, f"fused losses at steps_per_dispatch {spd}")
+
+    fused = runs[0]["trainer"]
+    train_graph = fused.steps.train_many.graphs["train"]
+    eval_graph = fused.steps.eval_many.graphs["eval"]
+    for what, graph, form in (("train", train_graph, "launches_masked"),
+                              ("eval", eval_graph, "launches")):
+        kernels, found = radix8_nodes(graph.graph)
+        counted = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()}
+        print(f"phase 23: the {what} graph ({tuple(graph.static[0].shape)} rows in): "
+              f"{kernels} kernel nodes, {found}; counted a replay {counted}; replays over the "
+              f"{P23_EPOCHS} epochs {graph.replays}")
+        check(all(n == 1 for n in found.values()), f"the {what} graph holds row 1 once")
+        check(counted == {f"log_mel_radix16dif_fused.{form}": 1, "log_mel_epilogue.launches": 1},
+              f"the {what} graph's row-1 form counted once a replay")
+
+    # (c) the numbers
+    tl_ = fused.train_loader
+    mb = (tl_.nbytes + fused.val_loader.nbytes) / 1e6
+    host = tl_.cache.cpu().numpy()
+    up = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    quiet(DeviceCachedLoader, datasets()[0], 32, device=dev)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 23: [{card}] device cache: {mb:.1f} MB ({tl_.cache.dtype}; train "
+          f"{tuple(tl_.cache.shape)}); train split's upload {np.median(up):.2f} ms "
+          f"({tl_.nbytes / 1e6:.1f} MB, pageable); its construction (decode, round-trip check, "
+          f"upload) {decode_ms:.1f} ms")
+
+    idxs = tl_.epoch_index_batches()[:8].reshape(4, 2, 32)
+    lbls = tl_.labels_all[idxs]
+    cw = fused.class_weights
+    lr = float(fused.scheduler.lr)
+
+    def fused_steps():
+        return fused.steps.train_many(tl_.cache, idxs, lbls, cw, lr, 9, 0)
+
+    fused_steps()
+    calls = host_calls(fused_steps, 4)
+    fused_ms = cuda_ms(fused_steps, iters=3, warmup=1) / 4
+    per = runs[1]["trainer"]
+    wavs = tl_.gather(idxs[0])
+    labels_t = torch.from_numpy(lbls[0]).long().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def eager_step():
+        return per.steps.train_step(wavs, labels_t, cw, lr, generator=gen)
+
+    def twice(fn):
+        return lambda: (fn(), fn())
+
+    eager_ms = cuda_ms(eager_step, iters=10, warmup=3)
+    eager_calls = host_calls(twice(eager_step), 2)
+    # phases 10 and 22's step (Adam not capturable, no cache): 567 launches
+    # a step by the one, 504 by the other
+    plain_model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    plain = make_step_fns(plain_model, fused.frontend,
+                          build_optimizer("adam", plain_model.named_parameters(), 1e-4),
+                          accum_steps=2, augment=True)
+
+    def plain_step():
+        return plain.train_step(wavs, labels_t, cw, lr, generator=gen)
+
+    plain_step()
+    counted = {"plain adam": (host_calls(twice(plain_step), 2),
+                              device_records(twice(plain_step), 2)),
+               "capturable adam": (eager_calls, device_records(twice(eager_step), 2))}
+    for what, (by_host, records) in counted.items():
+        print(f"phase 23: [{card}] one eager train step at config.yaml, {what}: host calls "
+              f"{json.dumps({k: round(v, 1) for k, v in by_host.items()})}; device records "
+              f"(the profiler) {json.dumps(records)}, {sum(records.values()):.0f} in all")
+    graph_step_ms = cuda_ms(train_graph.graph.replay, iters=10, warmup=2)
+    graph_eval_ms = cuda_ms(eval_graph.graph.replay, iters=10, warmup=2)
+    print(f"phase 23: [{card}] host calls a step: per step {sum(eager_calls.values()):.0f} "
+          f"{json.dumps({k: round(v, 1) for k, v in eager_calls.items()})}; fused "
+          f"{sum(calls.values()):.1f} {json.dumps({k: round(v, 2) for k, v in calls.items()})}")
+    print(f"phase 23: [{card}] train step at config.yaml (32 x 2 x 8 s, bf16, capturable adam, "
+          f"augmentation on) by CUDA events back to back: per step {eager_ms:.3f} ms, fused "
+          f"{fused_ms:.3f} ms a step; the graphed step alone (replays back to back) "
+          f"{graph_step_ms:.3f} ms; an eval group of {tuple(eval_graph.static[0].shape)[1:]} "
+          f"batches x rows as a graph {graph_eval_ms:.3f} ms")
+    print(f"phase 23: row 1 and the epilogue over the phase's main paths {launches}")
     return launches
 
 

@@ -293,9 +293,7 @@ def test_train_entry_point_needs_a_gpu_by_default(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("section, key, value, row", [
-    ("data", "cache_on_device", True, "A6"),
     ("training", "checkpoint_format", "orbax", "A4"),
-    ("training", "steps_per_dispatch", 4, "A6"),
 ])
 def test_unported_options_raise(corpus, tmp_path, section, key, value, row):
     config = small_config(tmp_path, "x")
@@ -305,6 +303,39 @@ def test_unported_options_raise(corpus, tmp_path, section, key, value, row):
     with pytest.raises(NotImplementedError, match=row):
         Trainer(build_model(small_config(tmp_path, "y")), ICBHIDataset(corpus, "train", config),
                 ICBHIDataset(corpus, "val", config), config, device="cpu")
+
+
+@pytest.mark.parametrize("steps_per_dispatch", [None])
+def test_cache_options_now_run(corpus, tmp_path, steps_per_dispatch):
+    """data.cache_on_device (and training.steps_per_dispatch), which raised
+    until the device cache and the fused epoch were ported, train through
+    `train.main` on the CPU: the fused epoch (steps_per_dispatch absent:
+    the whole epoch a call; the per-step path on the cache is
+    tests/test_torch_device_cache.py's reference). The best checkpoint of
+    one epoch, resumed, gives the uninterrupted run's second epoch."""
+    import yaml
+
+    def run(name, epochs, *extra):
+        config = small_config(tmp_path, name, epochs=2)
+        config["data"]["cache_on_device"] = True
+        config["training"]["batch_size"] = 2  # 8 train clips: 2 groups of 2 batches
+        if steps_per_dispatch is not None:
+            config["training"]["steps_per_dispatch"] = steps_per_dispatch
+        check_ported_options(config)
+        (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(config))
+        return port_train.main(["--config", str(tmp_path / f"{name}.yaml"), "--data-path",
+                                str(corpus), "--device", "cpu", "--no-plots",
+                                "--epochs", str(epochs), *extra])
+
+    whole = run("whole", 2)
+    first = run("first", 1)
+    best = tmp_path / "first" / "ckpt" / "best_model.ckpt"
+    assert best.exists() and len(first["train_loss"]) == 1
+    np.testing.assert_allclose(first["train_loss"], whole["train_loss"][:1], rtol=1e-6)
+    resumed = run("first", 2, "--resume", str(best))
+    assert len(resumed["train_loss"]) == 1
+    for k in ("train_loss", "val_loss", "train_acc", "val_acc"):
+        np.testing.assert_allclose(resumed[k], whole[k][1:], rtol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("key, value", [("pretrained", True), ("architecture", "resnet")])
