@@ -3,9 +3,12 @@
 Port of `audio_classification_icbhi_tpu/data/dataset.py:147-213`: glob
 `audio_and_txt_files/*.wav` sorted, pair each with its annotation txt,
 label at recording level, positional 70/15/15 split over the sorted list.
-Items are fixed-length waveforms decoded on the host (numpy codec); the mel
-transform and augmentation run on the device inside the train step. The
-native threaded decoder of `load_batch` is ROADMAP.md A6.
+Items are fixed-length waveforms decoded on the host; the mel transform
+and augmentation run on the device inside the train step. `load_batch`
+(the loader's and the device cache's path) decodes a batch in one threaded
+call of the native decoder (`native.decode_batch`, 4 threads), with the
+JAX loader's per-row fallback (`dataset.py:27-46` there): a row at another
+sample rate, or one the library refused, is decoded and resampled alone.
 """
 
 from __future__ import annotations
@@ -15,8 +18,28 @@ from typing import Any
 
 import numpy as np
 
+from audio_classification_icbhi_tpu_torch import native
 from audio_classification_icbhi_tpu_torch.data import wavio
 from audio_classification_icbhi_tpu_torch.data.annotations import recording_label
+
+
+def _native_load_batch(dataset, idxs) -> tuple[np.ndarray, np.ndarray]:
+    """The fixed-shape datasets' batch load: one `native.decode_batch` call,
+    then the per-row path (`dataset[i]`) for each row whose file is at
+    another rate than the dataset's or failed to decode. Without the
+    library, every row takes the per-row path."""
+    idxs = [int(i) for i in idxs]
+    labels = np.asarray([dataset.data[i][1] for i in idxs], dtype=np.int32)
+    decoded = native.decode_batch([dataset.data[i][0] for i in idxs],
+                                  dataset.target_length, n_threads=4)
+    if decoded is None:
+        return np.stack([dataset[i][0] for i in idxs]).astype(np.float32), labels
+    batch, srs, _ = decoded
+    per_row = [row for row in range(len(idxs)) if srs[row] != dataset.sample_rate]
+    for row in per_row:
+        batch[row] = dataset[idxs[row]][0]
+    native.ROWS.add(native=len(idxs) - len(per_row), per_row=len(per_row))
+    return batch, labels
 
 
 class ICBHIDataset:
@@ -74,7 +97,6 @@ class ICBHIDataset:
         return wavio.pad_or_crop(wav, self.target_length).astype(np.float32), label
 
     def load_batch(self, idxs) -> tuple[np.ndarray, np.ndarray]:
-        """(B, target_length) float32 waveforms and (B,) int32 labels."""
-        idxs = [int(i) for i in idxs]
-        wavs = np.stack([self[i][0] for i in idxs]).astype(np.float32)
-        return wavs, np.asarray([self.data[i][1] for i in idxs], dtype=np.int32)
+        """(B, target_length) float32 waveforms and (B,) int32 labels,
+        through the native batch decoder (`_native_load_batch`)."""
+        return _native_load_batch(self, idxs)

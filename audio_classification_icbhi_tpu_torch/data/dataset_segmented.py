@@ -13,8 +13,9 @@ would leave the test split empty; when train + val >= 1, val becomes
 (1 - train) / 2, with a warning.
 
 Items are fixed-length waveforms (3 s where the config names no duration)
-decoded on the host (numpy) by `data/dataset.ICBHIDataset`, which this
-class extends with its own index; the native decoder is ROADMAP.md A6.
+decoded on the host by `data/dataset.ICBHIDataset`, which this class
+extends with its own index: `load_batch` is its native batch decode
+(`dataset_segmented.py:116-120` of the JAX package).
 """
 
 from __future__ import annotations

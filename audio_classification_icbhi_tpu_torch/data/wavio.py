@@ -2,8 +2,15 @@
 
 Port of `audio_classification_icbhi_tpu/data/wavio.py:29-190`: RIFF/WAVE
 PCM 8/16/24/32 and IEEE float 32/64, including WAVE_FORMAT_EXTENSIBLE, and
-the polyphase resampler. Decoding uses the numpy codec; the native fastwav
-path is ROADMAP.md A6.
+the polyphase resampler. `load_audio` decodes through the native C++
+decoder (`native.decode_mono`) where it builds and takes the file, else
+through this module's numpy codec (`decode_mono_numpy`), which gives the
+same samples bit for bit.
+
+One difference from the JAX package's numpy fallback: an IEEE float64
+file with two channels is mixed to mono in float64 and rounded once, as
+the C++ decoder mixes it, where the JAX fallback rounds each channel to
+float32 first (`read_wav`) and can land one ulp away.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
+from audio_classification_icbhi_tpu_torch import native
 from audio_classification_icbhi_tpu_torch.ops.resample import _resample_kernel
 
 _PCM_DTYPES = {8: np.uint8, 16: np.int16, 32: np.int32}
@@ -21,6 +29,13 @@ _PCM_DTYPES = {8: np.uint8, 16: np.int16, 32: np.int32}
 
 def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     """Decode a WAV file -> (float32 samples in [-1, 1] of shape (channels, n), sr)."""
+    x, sr = _read_samples(path)
+    return np.ascontiguousarray(x, dtype=np.float32), sr
+
+
+def _read_samples(path: str | Path) -> tuple[np.ndarray, int]:
+    """`read_wav` before the cast: (channels, n) samples in float32, or in
+    float64 for an IEEE float64 file."""
     raw = Path(path).read_bytes()
     if len(raw) < 12 or raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
         raise ValueError(f"not a RIFF/WAVE file: {path}")
@@ -75,13 +90,20 @@ def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
         else:
             raise ValueError(f"unsupported PCM bit depth {bits}: {path}")
     elif audio_format == 3:  # IEEE float
-        dt = np.float32 if bits == 32 else np.float64
-        x = np.frombuffer(data, dtype=dt).astype(np.float32)
+        x = np.frombuffer(data, dtype=np.float32 if bits == 32 else np.float64)
     else:
         raise ValueError(f"unsupported WAV format code {audio_format}: {path}")
 
     n = (len(x) // channels) * channels
-    return x[:n].reshape(-1, channels).T.copy(), int(sr)
+    return x[:n].reshape(-1, channels).T, int(sr)
+
+
+def decode_mono_numpy(path: str | Path) -> tuple[np.ndarray, int]:
+    """The numpy codec's mono decode -> ((n,) float32, sr): the channels'
+    mean, in float64 for a float64 file, as the C++ decoder takes it."""
+    x, sr = _read_samples(path)
+    mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
+    return mono.astype(np.float32), sr
 
 
 def pad_or_crop(x: np.ndarray, target_length: int) -> np.ndarray:
@@ -149,9 +171,16 @@ def resample_np(x: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:
 
 
 def load_audio(path: str | Path, target_sr: int | None = None) -> tuple[np.ndarray, int]:
-    """Decode -> mono mix -> optional resample. Returns ((n,) float32, sr)."""
-    x, sr = read_wav(path)
-    mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
+    """Decode -> mono mix -> optional resample. Returns ((n,) float32, sr).
+    The native decoder decodes where it can, the numpy codec elsewhere;
+    `native.ROWS` counts which."""
+    decoded = native.decode_mono(path)
+    if decoded is not None:
+        mono, sr = decoded
+        native.ROWS.add(native=1)
+    else:
+        mono, sr = decode_mono_numpy(path)
+        native.ROWS.add(numpy=1)
     if target_sr is not None and sr != target_sr:
         mono = resample_np(mono, sr, target_sr)
         sr = target_sr

@@ -16,8 +16,9 @@ semantics are written out here:
   every class, as the JAX version's fallback does.
 
 `confusion_matrix` and `roc_curve` give what sklearn's functions of the
-same names give (`roc_curve` with its default drop_intermediate=True); the
-reports and plots draw from them.
+same names give (`roc_curve` with its default drop_intermediate=True), and
+`classification_report` sklearn's text report, character for character
+(with zero_division=0); the reports and plots draw from them.
 """
 
 from __future__ import annotations
@@ -158,6 +159,45 @@ def calculate_metrics(y_true, y_pred, y_prob=None, class_names: list[str] | None
         finite = [a for a in aucs if np.isfinite(a)]
         metrics["roc_auc_macro"] = float(np.mean(finite)) if finite else float("nan")
     return metrics
+
+
+def classification_report(y_true, y_pred, labels, target_names, digits: int = 2) -> str:
+    """sklearn's `classification_report(y_true, y_pred, labels=labels,
+    target_names=target_names, digits=digits, zero_division=0)` text: a
+    row a label, then accuracy (or the micro average where some true or
+    predicted value is not among `labels`), the macro and the weighted
+    average."""
+    y_true, y_pred = np.asarray(y_true).ravel(), np.asarray(y_pred).ravel()
+    p, r, f1, support = _prf(y_true, y_pred, labels)
+    if not np.any(y_true == y_pred):
+        support = support.astype(np.float64)  # sklearn's counts are floats then ("1.0")
+    headers = ["precision", "recall", "f1-score", "support"]
+    width = max(max(len(name) for name in target_names), len("weighted avg"), digits)
+    report = ("{:>{width}s} " + " {:>9}" * len(headers)).format("", *headers, width=width)
+    report += "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    for row in zip(target_names, p, r, f1, support):
+        report += row_fmt.format(*row, width=width, digits=digits)
+    report += "\n"
+    total = support.sum()
+    # the micro average over `labels`: sums of tp, predicted and true
+    tp = float(sum(np.sum((y_true == c) & (y_pred == c)) for c in labels))
+    n_pred = float(sum(np.sum(y_pred == c) for c in labels))
+    micro_p = tp / n_pred if n_pred else 0.0
+    micro_r = tp / total if total else 0.0
+    micro_f = 2 * tp / (total + n_pred) if total + n_pred else 0.0
+    if set(np.unique(np.concatenate([y_true, y_pred])).tolist()) <= set(np.asarray(labels).tolist()):
+        report += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}" + " {:>9}\n"
+                   ).format("accuracy", "", "", micro_f, total, width=width, digits=digits)
+    else:
+        report += row_fmt.format("micro avg", micro_p, micro_r, micro_f, total,
+                                 width=width, digits=digits)
+    report += row_fmt.format("macro avg", p.mean(), r.mean(), f1.mean(), total,
+                             width=width, digits=digits)
+    w = support if total else np.ones_like(support)
+    report += row_fmt.format("weighted avg", *(float(np.average(v, weights=w)) for v in (p, r, f1)),
+                             total, width=width, digits=digits)
+    return report
 
 
 def print_metrics(metrics: dict) -> None:

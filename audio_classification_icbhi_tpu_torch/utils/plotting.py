@@ -29,7 +29,9 @@ from audio_classification_icbhi_tpu_torch.utils.metrics import (
 )
 
 
-def _pyplot():
+def pyplot():
+    """matplotlib.pyplot on the headless Agg backend; ImportError naming
+    --no-plots where matplotlib is missing."""
     try:
         import matplotlib
 
@@ -42,7 +44,8 @@ def _pyplot():
     return plt
 
 
-def _seaborn():
+def seaborn():
+    """seaborn; ImportError naming --no-plots where it is missing."""
     try:
         import seaborn as sns
     except ImportError as e:
@@ -61,7 +64,7 @@ def _save(plt, fig, save_path) -> None:
 
 def plot_confusion_matrix(y_true, y_pred, class_names=None, save_path=None, normalize=False):
     """Heatmap of the confusion matrix, rows true; returns the counts."""
-    plt, sns = _pyplot(), _seaborn()
+    plt, sns = pyplot(), seaborn()
     class_names = class_names or DEFAULT_CLASSES
     cm = confusion_matrix(y_true, y_pred, list(range(len(class_names))))
     fmt, data = "d", cm
@@ -81,7 +84,7 @@ def plot_confusion_matrix(y_true, y_pred, class_names=None, save_path=None, norm
 def plot_roc_curves(y_true, y_prob, class_names=None, save_path=None):
     """One-vs-rest ROC curves of the classes present; returns the points
     drawn (`metrics.roc_points`)."""
-    plt = _pyplot()
+    plt = pyplot()
     class_names = class_names or DEFAULT_CLASSES
     points = roc_points(y_true, y_prob, class_names)
     fig, ax = plt.subplots(figsize=(8, 6))
@@ -99,7 +102,7 @@ def plot_roc_curves(y_true, y_prob, class_names=None, save_path=None):
 
 def plot_training_history(history: dict, save_path=None):
     """Loss and accuracy curves by epoch."""
-    plt = _pyplot()
+    plt = pyplot()
     fig, axes = plt.subplots(1, 2, figsize=(14, 5))
     epochs = range(1, len(history["train_loss"]) + 1)
     axes[0].plot(epochs, history["train_loss"], label="train")
@@ -119,7 +122,7 @@ def plot_training_history(history: dict, save_path=None):
 def plot_icbhi_metrics(metrics: dict, class_names=None, save_path=None):
     """Per-class sensitivity, specificity and harmonic score bars, and the
     overall scores (`icbhi_metrics.calculate_icbhi_score`'s dict)."""
-    plt = _pyplot()
+    plt = pyplot()
     class_names = class_names or ICBHI_CLASSES
     fig, axes = plt.subplots(1, 2, figsize=(14, 5))
     x = np.arange(len(class_names))
@@ -146,7 +149,7 @@ def plot_icbhi_metrics(metrics: dict, class_names=None, save_path=None):
 def plot_icbhi_confusion_matrix(y_true, y_pred, class_names=None, save_path=None):
     """Confusion matrix annotated with counts and row percentages; returns
     the counts."""
-    plt, sns = _pyplot(), _seaborn()
+    plt, sns = pyplot(), seaborn()
     class_names = class_names or ICBHI_CLASSES
     cm = confusion_matrix(y_true, y_pred, list(range(len(class_names))))
     row_sums = np.maximum(cm.sum(axis=1, keepdims=True), 1)
@@ -167,7 +170,7 @@ def plot_icbhi_confusion_matrix(y_true, y_pred, class_names=None, save_path=None
 def plot_icbhi_history(history: dict, save_path=None):
     """4-panel ICBHI training history: loss, accuracy, ICBHI score, and
     sensitivity / specificity by epoch."""
-    plt = _pyplot()
+    plt = pyplot()
     fig, axes = plt.subplots(2, 2, figsize=(14, 10))
     epochs = range(1, len(history["train_loss"]) + 1)
     axes[0, 0].plot(epochs, history["train_loss"], label="train")

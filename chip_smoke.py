@@ -187,7 +187,27 @@ toolkit. Phases:
    launches one replay counts; the cache's MB, decode and upload ms; host
    calls a step, per step and fused, and the eager step's device records
    (kernels, copies, fills); the graphed step's and eval group's device
-   ms. Its row-1 launches add to the kernels line.
+   ms. Its row-1 launches add to the kernels line;
+24. the host side and the last entry points: (a) the native wav decoder
+   (`native`, built with g++ into build/native/): a fresh build's time,
+   `ICBHIDataset.load_batch` over the train split of phase 9's 16 kHz
+   corpus and of phase 21's 4 / 10 / 44.1 kHz fixture equal bit for bit to
+   the numpy codec, with the row counters (native rows; the other rates on
+   the per-row path), host ms of each decoder, and the 10-minute
+   recording's `load_audio`; phases 10, 13 and 23 print which decoder did
+   their rows; (b) `ops/resample.resample` of 8 x 15 s at 44.1 / 4 / 10 kHz
+   to 16 kHz with TF32 switched on around the call, against the same
+   polyphase sum in float64 (an a-priori f32 bound) and equal to the call
+   with TF32 off, by CUDA events beside `wavio.resample_np`; (c)
+   `phase_vocoder` at 2048/512 on 15 s at rates 0.8 and 1.25 against itself
+   in float64: magnitudes within 1e-6 of the peak, phases within
+   `phase_bound`; (d) `diagnose_data --no-plots` on phase 9's corpus and
+   phase 21's segmented corpus: finite mels, a finite loss within 1 of
+   ln 4, row 1 launched; (e) `confusion_matrix generate --no-plots` on
+   phase 9's checkpoint: its NPY equals the counts of a Validator pass on
+   the card. The analyzer runs of phases 12, 15, 17 and 20 pass
+   --no-plots (the card's machine has no matplotlib). Row-1 launches of
+   (d) and (e) add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -220,6 +240,9 @@ import torch
 import torch.nn.functional as F
 
 from audio_classification_icbhi_tpu_torch import analyze
+from audio_classification_icbhi_tpu_torch import confusion_matrix as cm_entry
+from audio_classification_icbhi_tpu_torch import diagnose_data
+from audio_classification_icbhi_tpu_torch import native
 from audio_classification_icbhi_tpu_torch import parity
 from audio_classification_icbhi_tpu_torch import preprocess_icbhi
 from audio_classification_icbhi_tpu_torch import train as train_entry
@@ -234,7 +257,14 @@ from audio_classification_icbhi_tpu_torch.data.synthetic import (
     generate_icbhi_dataset,
     synth_respiratory_cycle,
 )
-from audio_classification_icbhi_tpu_torch.data.wavio import read_wav, write_wav
+from audio_classification_icbhi_tpu_torch.data import wavio
+from audio_classification_icbhi_tpu_torch.data.wavio import (
+    decode_mono_numpy,
+    pad_or_crop,
+    read_wav,
+    resample_np,
+    write_wav,
+)
 from audio_classification_icbhi_tpu_torch.inference import ClassifierEngine
 from audio_classification_icbhi_tpu_torch.models import (
     CompactResNet,
@@ -254,6 +284,13 @@ from audio_classification_icbhi_tpu_torch.ops import conv_kernels as ck
 from audio_classification_icbhi_tpu_torch.ops import augment as aug
 from audio_classification_icbhi_tpu_torch.ops.golden import golden_mel, parity_battery
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, mel_filterbank
+from audio_classification_icbhi_tpu_torch.ops import resample as resample_mod
+from audio_classification_icbhi_tpu_torch.ops.resample import _resample_kernel, resample
+from audio_classification_icbhi_tpu_torch.ops.time_stretch import (
+    phase_bound,
+    phase_vocoder,
+    stft_complex,
+)
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     features_from_wavs,
     make_step_fns,
@@ -276,6 +313,9 @@ from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
 from audio_classification_icbhi_tpu_torch.training.validation import Validator
 from audio_classification_icbhi_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from audio_classification_icbhi_tpu_torch.utils.config import load_config, set_seed
+from audio_classification_icbhi_tpu_torch.utils.metrics import (
+    confusion_matrix as metrics_confusion_matrix,
+)
 from audio_classification_icbhi_tpu_torch.utils.icbhi_metrics import (
     calculate_detailed_confusion_metrics,
     calculate_icbhi_score,
@@ -664,6 +704,7 @@ def main() -> int:
         segmented = phase21_segmented(dev, rng, card, Path(tmp), corpus)
         parallel = phase22_data_parallel(dev, rng, card, Path(tmp), corpus, recording, sgd_step)
         fused = phase23_fused_epoch(dev, rng, card, Path(tmp), corpus, sgd_step)
+        host = phase24_host_and_reports(dev, rng, card, Path(tmp), corpus)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -673,7 +714,7 @@ def main() -> int:
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
     serving["launches"] += (resnet["inference"] + segmented["inference"] + parallel["inference"]
-                            + fused["inference"])
+                            + fused["inference"] + host["inference"])
     training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
                     + parallel["masked"] + fused["masked"], max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
@@ -981,9 +1022,11 @@ def phase10_timings(dev, rng, card: str, corpus: Path, tmp: Path) -> dict:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     trainer.train_loader.set_epoch(3)
+    native.ROWS.reset()
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in trainer.train_loader)
     loader_s = time.perf_counter() - t0
+    loader_rows = decoders()
     t0 = time.perf_counter()
     trainer.validate(2)
     val_s = time.perf_counter() - t0
@@ -991,7 +1034,8 @@ def phase10_timings(dev, rng, card: str, corpus: Path, tmp: Path) -> dict:
     print(f"phase 10: [{card}] train epoch, {len(trainer.train_dataset)} clips, {n_steps} "
           f"optimizer steps: {epoch_s * 1e3:.1f} ms wall untraced; traced {wall_us / 1e3:.1f} ms "
           f"with the device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%); "
-          f"the loader alone, {n_batches} batches decoded: {loader_s * 1e3:.1f} ms; "
+          f"the loader alone, {n_batches} batches decoded: {loader_s * 1e3:.1f} ms "
+          f"({loader_rows}); "
           f"validation, {len(trainer.val_dataset)} clips: {val_s * 1e3:.1f} ms")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -1060,6 +1104,13 @@ def phase11_radix8_kernel(dev, rng) -> tuple[float, float]:
     return max(errs[False]), max(errs[True])
 
 
+def decoders() -> str:
+    """Which wav decoder did the rows since `native.ROWS.reset()`."""
+    rows = native.ROWS.as_dict()
+    return (f"wav rows decoded: native {rows['native']}, numpy codec {rows['numpy']}; "
+            f"{rows['per_row']} of a batch on the per-row path")
+
+
 def kernel_name(key: str) -> str:
     """A profiler kernel key, shortened: no return type, no namespaces,
     at most 60 characters ("log_mel_epilogue_kernel(float const*, ...")."""
@@ -1094,7 +1145,8 @@ def phase12_analyzer(tmp: Path, corpus: Path, card: str) -> tuple[Path, dict[str
         t0 = time.perf_counter()
         eng, results, csv_path = quiet(analyze.main, [
             variant, "--audio", str(recording), "--model", str(trained),
-            "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis")])
+            "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis"),
+            "--no-plots"])
         torch.cuda.synchronize()
         read_epilogue(f"phase 12 analyze {variant}")
         wall = time.perf_counter() - t0
@@ -1224,13 +1276,14 @@ def phase13_analyzer_timings(dev, rng, card: str, tmp: Path, recording: Path) ->
         probs = long.predict_window_probs(windows)
         times.append(time.perf_counter() - t0)
     check(probs.shape == (2400, 4) and bool(np.isfinite(probs).all()), "10-minute probabilities")
+    native.ROWS.reset()
     t0 = time.perf_counter()
     results, _ = quiet(long.analyze_audio, long_path)
     whole = time.perf_counter() - t0
     print(f"phase 13: [{card}] analyzer, 10-minute recording, max_duration=None, 2,400 windows "
           f"of 0.5 s: device pass median {np.median(times) * 1e3:.3f} ms = "
           f"{2400 / np.median(times):.1f} windows/s; analyze_audio end to end (wav decode "
-          f"included) {whole * 1e3:.1f} ms for {len(results)} windows")
+          f"included) {whole * 1e3:.1f} ms for {len(results)} windows ({decoders()})")
     kernels, busy_us, wall_us = trace_device(lambda: long.predict_window_probs(windows), 2)
     print(f"phase 13: [{card}] traced 2 passes of 2,400 windows: device busy "
           f"{busy_us / 2:.1f} us/pass of {wall_us / 2:.1f} us/pass wall "
@@ -1512,7 +1565,8 @@ def phase15_fused_cnn(dev, rng, card: str, tmp: Path, recording: Path) -> dict[s
         zero_counts()
         eng, results, csv_path = quiet(analyze.main, [
             "parallel", "--audio", str(recording), "--model", str(trained),
-            "--segment-duration", "0.5", "--output-dir", str(tmp / "fused_analysis")])
+            "--segment-duration", "0.5", "--output-dir", str(tmp / "fused_analysis"),
+            "--no-plots"])
         torch.cuda.synchronize()
         ana = conv_counts()
         ana["log_mel_radix8dif_fused"] = mel_kernels.log_mel_radix8dif_fused.launches
@@ -2453,7 +2507,8 @@ def phase17_entry_points(dev, rng, card: str, tmp: Path, corpus: Path,
         zero_counts()
         eng, results, csv_path = quiet(analyze.main, [
             "parallel", "--audio", str(recording), "--model", str(trained),
-            "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis512")])
+            "--segment-duration", str(duration), "--output-dir", str(tmp / "analysis512"),
+            "--no-plots"])
         torch.cuda.synchronize()
         read_epilogue(f"phase 17 analyze at {duration:g} s")
         fe = eng.frontend
@@ -3106,7 +3161,8 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
     zero_counts()
     eng, results, csv_path = quiet(analyze.main, [
         "parallel", "--audio", str(recording), "--model", str(best),
-        "--segment-duration", "0.5", "--output-dir", str(tmp / "resnet_analysis")])
+        "--segment-duration", "0.5", "--output-dir", str(tmp / "resnet_analysis"),
+        "--no-plots"])
     torch.cuda.synchronize()
     read_epilogue("phase 20 ResNet analyzer")
     launches["analyzer"] += k8.launches
@@ -3973,13 +4029,14 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
         torch.from_numpy(host).to(dev)
         torch.cuda.synchronize()
         up.append((time.perf_counter() - t0) * 1e3)
+    native.ROWS.reset()
     t0 = time.perf_counter()
     quiet(DeviceCachedLoader, datasets()[0], 32, device=dev)
     decode_ms = (time.perf_counter() - t0) * 1e3
     print(f"phase 23: [{card}] device cache: {mb:.1f} MB ({tl_.cache.dtype}; train "
           f"{tuple(tl_.cache.shape)}); train split's upload {np.median(up):.2f} ms "
           f"({tl_.nbytes / 1e6:.1f} MB, pageable); its construction (decode, round-trip check, "
-          f"upload) {decode_ms:.1f} ms")
+          f"upload) {decode_ms:.1f} ms ({decoders()})")
 
     idxs = tl_.epoch_index_batches()[:8].reshape(4, 2, 32)
     lbls = tl_.labels_all[idxs]
@@ -4034,6 +4091,202 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
           f"{graph_step_ms:.3f} ms; an eval group of {tuple(eval_graph.static[0].shape)[1:]} "
           f"batches x rows as a graph {graph_eval_ms:.3f} ms")
     print(f"phase 23: row 1 and the epilogue over the phase's main paths {launches}")
+    return launches
+
+
+def resample_tolerance(x: torch.Tensor, orig: int, new: int) -> float:
+    """An a-priori bound on |resample(x) in f32 - the same polyphase sum in
+    exact arithmetic|: each output sums K products of x with one phase's
+    taps, so its f32 rounding is at most γ_K·max|x|·max_p Σ_k |h_pk|, with
+    γ_K = K·u / (1 − K·u), u = 2^-24 (Higham's bound, any summation order).
+    A TF32 product (operands rounded to 2^-11) can stay inside it on noise,
+    so full f32 is checked apart: the call with TF32 on equals the call with
+    it off, bit for bit."""
+    g = math.gcd(orig, new)
+    kernel, _ = _resample_kernel(orig // g, new // g, 6, 0.99)
+    k, u = kernel.shape[-1], 2.0 ** -24
+    return k * u / (1 - k * u) * float(x.abs().max()) * float(np.abs(kernel).sum(-1).max())
+
+
+def numpy_codec_row(path: str, sample_rate: int, length: int) -> np.ndarray:
+    """One dataset row by the numpy codec alone: decode, resample where the
+    file's rate differs, pad or crop."""
+    mono, sr = decode_mono_numpy(path)
+    if sr != sample_rate:
+        mono = resample_np(mono, sr, sample_rate)
+    return pad_or_crop(mono, length).astype(np.float32)
+
+
+def phase24_host_and_reports(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str, int]:
+    """(a) the native wav decoder: its build, `ICBHIDataset.load_batch` on
+    phase 9's 16 kHz corpus against the numpy codec bit for bit with the
+    row counters, the corpus fixture's 4 / 10 / 44.1 kHz recordings on the
+    per-row path, host ms of each decoder and of the 10-minute recording's
+    `load_audio`; (b) `ops/resample.resample` on the card at 44.1 / 4 / 10
+    kHz -> 16 kHz, TF32 switched on around the call, against the same
+    polyphase sum in float64; (c) `phase_vocoder` at 2048/512 on 15 s,
+    rates 0.8 and 1.25, against itself in float64 within `phase_bound`;
+    (d) `diagnose_data --no-plots` on phase 9's and phase 21's corpora;
+    (e) `confusion_matrix generate --no-plots` on phase 9's checkpoint
+    against a Validator pass on the card. Returns row 1's inference
+    launches on (d) and (e)."""
+    start = time.perf_counter()
+    launches = {"inference": 0}
+    cfg = load_config(str(REPO / "config.yaml"))
+
+    # (a) the native decoder
+    check(native.available(), "the native decoder built and loaded")
+    t0 = time.perf_counter()
+    subprocess.run([native.compiler(), *native.CXX_FLAGS, "-o", str(tmp / "fastwav24.so"),
+                    str(native.SRC)], check=True, capture_output=True, timeout=300)
+    print(f"phase 24: [{card}] native decoder available, {native.build().name}; a fresh "
+          f"{native.compiler()} build of {native.SRC.name}: {time.perf_counter() - t0:.2f} s")
+    for what, root, other_rates in (
+            ("phase 9's corpus, 16 kHz", corpus, False),
+            ("phase 21's corpus fixture, 4 / 10 / 44.1 kHz", tmp / "icbhi_raw", True)):
+        ds = quiet(ICBHIDataset, root, "train", cfg)
+        idxs = np.arange(len(ds))
+        native.ROWS.reset()
+        t0 = time.perf_counter()
+        wavs, _ = ds.load_batch(idxs)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        rows = native.ROWS.as_dict()
+        t0 = time.perf_counter()
+        plain = np.stack([numpy_codec_row(p, ds.sample_rate, ds.target_length)
+                          for p, _ in ds.data])
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        srs = native.decode_batch([p for p, _ in ds.data], 1)[1]
+        rates = sorted(set(srs.tolist()))
+        print(f"phase 24: [{card}] load_batch of the train split of {what} ({len(ds)} rows "
+              f"of {ds.duration:g} s, file rates {rates}): native {native_ms:.1f} ms "
+              f"(4 threads), numpy codec {numpy_ms:.1f} ms; rows {json.dumps(rows)}; "
+              f"equal bit for bit: {np.array_equal(wavs, plain)}")
+        check(np.array_equal(wavs, plain), f"load_batch on {what}: native == numpy codec")
+        per_row = int(np.sum(srs != ds.sample_rate))
+        check(per_row == (len(ds) if other_rates else 0), f"{what}: the files' rates")
+        check(rows == {"native": len(ds), "numpy": 0, "per_row": per_row},
+              f"{what}: every row decoded natively, the other rates on the per-row path")
+    long_path = tmp / "ten_minutes.wav"
+    times = {}
+    for name, load in (("native", lambda: wavio.load_audio(long_path, SR)[0]),
+                       ("numpy codec", lambda: decode_mono_numpy(long_path)[0])):
+        native.ROWS.reset()
+        out, ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out.append(load())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = (float(np.median(ms)), out[0], native.ROWS.as_dict())
+    check(np.array_equal(times["native"][1], times["numpy codec"][1]),
+          "the 10-minute recording: native == numpy codec")
+    check(times["native"][2]["native"] == 5, "load_audio decoded the recording natively")
+    print(f"phase 24: [{card}] the 10-minute recording (16 kHz PCM16): load_audio, native, "
+          f"median {times['native'][0]:.2f} ms; the numpy codec {times['numpy codec'][0]:.2f} ms")
+
+    # (b) resample on the card, full f32 with TF32 switched on around it
+    for orig in (44100, 4000, 10000):
+        host = synth_clips(rng, 8, 15 * orig)
+        x = torch.from_numpy(host).to(dev)
+        switches = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = resample(x, orig, SR)
+            kernel_ms = cuda_ms(lambda: resample(x, orig, SR), iters=20)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+        tf32_off = resample(x, orig, SR)
+        want = resample(x.double(), orig, SR)
+        # what the same conv gives where TF32 may run: the call without its guard
+        switches = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        guard, resample_mod._full_f32 = resample_mod._full_f32, contextlib.nullcontext
+        try:
+            unguarded = resample(x, orig, SR)
+        finally:
+            resample_mod._full_f32 = guard
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+        unguarded_err = (unguarded.double() - want).abs().max().item()
+        err = (got.double() - want).abs().max().item()
+        tol = resample_tolerance(x, orig, SR)
+        t0 = time.perf_counter()
+        on_host = resample_np(host, orig, SR)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        host_err = float(np.abs(on_host - want.cpu().numpy()).max())
+        print(f"phase 24: [{card}] resample 8 x 15 s {orig} -> {SR} Hz, TF32 on around the "
+              f"call: max|card - f64| = {err:.3e} (tol {tol:.3e}, margin {tol / max(err, 1e-30):.1f}x); "
+              f"equal to the call with TF32 off: {torch.equal(got, tf32_off)} (without the "
+              f"guard, TF32 on: {unguarded_err:.3e}); CUDA events "
+              f"{kernel_ms:.4f} ms; wavio.resample_np on the host {host_ms:.1f} ms "
+              f"(max|host - f64| {host_err:.3e})")
+        check(got.shape == (8, 15 * SR) and err <= tol, f"resample at {orig} Hz vs float64")
+        check(torch.equal(got, tf32_off), f"resample at {orig} Hz holds f32 with TF32 on")
+
+    # (c) the phase vocoder against itself in float64
+    spec = stft_complex(torch.from_numpy(synth_clips(rng, 1, 15 * SR)[0]).to(dev), N_FFT, HOP)
+    for rate in (0.8, 1.25):
+        out = phase_vocoder(spec, rate, HOP)
+        ref = phase_vocoder(spec.to(torch.complex128), rate, HOP)
+        peak = ref.abs().max()
+        mag = ((out.abs().double() - ref.abs()).abs().max() / peak).item()
+        bound = torch.from_numpy(phase_bound(spec.shape[-2], out.shape[-1], HOP, N_FFT)).to(dev)
+        seen = ref.abs() > 1e-3 * peak
+        dphi = torch.angle(out.to(torch.complex128) * ref.conj()).abs()
+        ratio = (dphi / bound)[seen].max().item()
+        ms = cuda_ms(lambda: phase_vocoder(spec, rate, HOP), iters=10)
+        top = HOP * 2 * np.pi * (N_FFT // 2) / N_FFT * out.shape[-1]
+        print(f"phase 24: [{card}] phase_vocoder {tuple(spec.shape)} -> {tuple(out.shape)} at "
+              f"rate {rate}: max magnitude error {mag:.3e} of the peak (tol 1e-6); the top "
+              f"bin's phase reaches {top:.3e} rad; max |phase error| {dphi[seen].max().item():.3e} "
+              f"rad, at most {ratio:.3f} of phase_bound (max {bound.max().item():.3e} rad, margin "
+              f"{1 / ratio:.1f}x); {ms:.4f} ms by CUDA events")
+        check(mag <= 1e-6 and ratio <= 1.0, f"phase_vocoder at rate {rate} vs float64")
+
+    # (d) diagnose_data on both corpora, (e) the confusion-matrix report
+    k16 = mel_kernels.log_mel_radix16dif_fused
+    for what, argv in (
+            ("phase 9's corpus at config.yaml", ["--config", str(REPO / "config.yaml"),
+                                                  "--data-path", str(corpus)]),
+            ("phase 21's segmented corpus at config_segmented.yaml",
+             ["--config", str(REPO / "config_segmented.yaml"), "--segmented",
+              "--data-path", str(tmp / "icbhi_segmented")])):
+        zero_counts()
+        t0 = time.perf_counter()
+        got = quiet(diagnose_data.main, argv + ["--no-plots"])
+        torch.cuda.synchronize()
+        read_epilogue(f"phase 24 diagnose_data on {what}")
+        launches["inference"] += k16.launches
+        print(f"phase 24: [{card}] diagnose_data --no-plots on {what}: {got['size']} clips, "
+              f"classes {got['counts'].tolist()} (imbalance flag {got['imbalanced']}), "
+              f"{len(got['samples'])} mels finite {all(s['finite'] for s in got['samples'])}, "
+              f"initial loss {got['loss']:.4f} (ln 4 = {math.log(4):.4f}), "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms; row-1 launches {k16.launches}")
+        check(k16.launches > 0, f"diagnose_data on {what} ran row 1")
+        check(all(s["finite"] for s in got["samples"]) and math.isfinite(got["loss"])
+              and abs(got["loss"] - math.log(4)) <= 1.0, f"diagnose_data on {what}")
+
+    best = tmp / "run" / "checkpoints" / "best_model.ckpt"
+    out_dir = tmp / "cm24"
+    zero_counts()
+    quiet(cm_entry.main, ["generate", "--model", str(best), "--split", "val", "--data-path",
+                          str(corpus), "--output-dir", str(out_dir), "--no-plots"])
+    torch.cuda.synchronize()
+    read_epilogue("phase 24 confusion_matrix")
+    entry_launches = k16.launches
+    launches["inference"] += entry_launches
+    check(entry_launches > 0, "confusion_matrix ran row 1")
+    engine = ClassifierEngine(best, device="cuda")
+    val = quiet(ICBHIDataset, corpus, "val", engine.config)
+    y_true, y_pred, _ = quiet(Validator(engine.model, val, engine.config, device=dev).validate)
+    want = metrics_confusion_matrix(y_true, y_pred, range(4))
+    got = np.load(out_dir / "confusion_matrix_val.npy")
+    files = sorted(p.name for p in out_dir.iterdir())
+    print(f"phase 24: [{card}] confusion_matrix generate --no-plots on phase 9's checkpoint, "
+          f"val split ({len(val)} clips): {got.tolist()}, equal to a Validator pass on the "
+          f"card: {np.array_equal(got, want)}; files {files}; row-1 launches {entry_launches}")
+    check(np.array_equal(got, want) and files == ["confusion_matrix_val.csv",
+                                                  "confusion_matrix_val.npy"],
+          "confusion_matrix's NPY equals the Validator's counts")
+    print(f"phase 24: {time.perf_counter() - start:.1f} s")
     return launches
 
 

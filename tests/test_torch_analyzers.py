@@ -253,7 +253,7 @@ def test_entry_point_runs_as_a_module():
     assert "--crackle-threshold" in out.stdout and "--device" in out.stdout
     top = subprocess.run([sys.executable, "-m", "audio_classification_icbhi_tpu_torch.analyze",
                           "--help"], capture_output=True, text=True, env=env, timeout=120)
-    assert "not ported yet" in top.stdout and "A8" in top.stdout
+    assert "picture" in top.stdout and "--no-plots" in top.stdout
 
 
 def test_fused_cnn_opt_in_raises_on_cuda(ckpts, monkeypatch):

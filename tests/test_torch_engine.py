@@ -145,18 +145,23 @@ def test_no_hidden_cpu_run(ckpts, monkeypatch):
 
 def test_port_imports_without_jax():
     """Every module of the port (the analyzers and `analyze`, the conv-block
-    kernels and the fused apply among them), and chip_smoke.py, imports with
-    jax, the JAX package and the packages the card lacks (sklearn,
-    matplotlib) blocked."""
+    kernels and the fused apply, the native decoder, the resampler and the
+    phase vocoder, the pictures, the viewer and the reports among them),
+    and chip_smoke.py, imports with jax, the JAX package and the packages
+    the card lacks (sklearn, matplotlib, seaborn, pygame, sounddevice)
+    blocked."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
 for blocked in ("jax", "flax", "optax", "msgpack", "pandas", "yaml", "sklearn",
-                "matplotlib", "audio_classification_icbhi_tpu"):
+                "matplotlib", "seaborn", "pygame", "sounddevice",
+                "audio_classification_icbhi_tpu"):
     sys.modules[blocked] = None
 import audio_classification_icbhi_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for new in ("ops.conv_kernels", "models.fused_infer"):
+for new in ("ops.conv_kernels", "models.fused_infer", "native", "ops.resample",
+            "ops.time_stretch", "analyzers.viz", "interactive", "confusion_matrix",
+            "diagnose_data"):
     assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
