@@ -6,8 +6,10 @@ per-step path: one train step per accumulation group of `BatchLoader`
 batches (a shorter tail group steps too, its gradient still divided by
 accum_steps), inverse-frequency class weights, the per-epoch scheduler
 stepped on the selection metric, the JAX trainer's TensorBoard tags, the best
-and periodic checkpoints in its msgpack payload (either trainer resumes from
-the other's files), early stopping, and exact resume.
+and periodic checkpoints in its payload, a msgpack file or, under
+`training.checkpoint_format: orbax`, an orbax directory (either trainer
+resumes from the other's, in either format), early stopping, and exact
+resume.
 
 Randomness: the model's initial weights come from a torch.Generator seeded
 by config["seed"]; every train step draws its augmentation and dropout from
@@ -46,8 +48,6 @@ Adam is built `capturable`. Where the trainer has a process group the cache
 is turned off, as the JAX trainer turns it off over several processes.
 The fp16 loss-scaled step has no fused form, as in the JAX package: it runs
 per step on the cache.
-
-Not here yet: orbax (ROADMAP.md A4).
 """
 
 from __future__ import annotations
@@ -91,10 +91,7 @@ from audio_classification_icbhi_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from audio_classification_icbhi_tpu_torch.utils.config import (
-    check_ported_options,
-    resolve_device,
-)
+from audio_classification_icbhi_tpu_torch.utils.config import resolve_device
 from audio_classification_icbhi_tpu_torch.utils.tensorboard import SummaryWriter
 
 
@@ -124,7 +121,6 @@ class Trainer:
                  mesh: Mesh | None = None):
         """`mesh`: this rank's data mesh (its device replaces `device`), or
         None for one device."""
-        check_ported_options(config)
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self.rank0 = mesh is None or mesh.rank == 0
@@ -595,15 +591,18 @@ class Trainer:
         self.best_val_loss = value
 
     def save_checkpoint(self, path, epoch: int, val_loss: float, extra: dict | None = None):
+        """training.checkpoint_format: "msgpack" (one file, the default) or
+        "orbax" (a directory), as the JAX trainer writes them."""
         if not self.rank0:  # every rank holds the same state; one writes it
             return
+        fmt = self.config["training"].get("checkpoint_format", "msgpack")
         payload = self._checkpoint_payload(epoch, val_loss, extra or {})
         if self.async_checkpoint:
             if self._ckpt_writer is None:
                 self._ckpt_writer = AsyncCheckpointWriter()
-            self._ckpt_writer.save(path, payload)
+            self._ckpt_writer.save(path, payload, format=fmt)
         else:
-            save_checkpoint(path, payload)
+            save_checkpoint(path, payload, format=fmt)
 
     def wait_for_checkpoints(self, close: bool = False) -> None:
         """Block until every queued checkpoint write is on disk; close=True

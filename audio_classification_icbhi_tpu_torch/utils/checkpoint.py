@@ -14,7 +14,9 @@ opt_state, val_loss, config, ...}, as flax's `msgpack_serialize` writes it:
 
 The codec below covers exactly that much msgpack, so the port needs no
 msgpack package. Files written here load in the JAX package and back.
-Orbax checkpoint directories are not read yet (ROADMAP.md A4).
+`format="orbax"` writes the JAX package's orbax checkpoint directory
+instead, and `load_checkpoint` reads a directory as one
+(`utils/orbax_format.py`), so every consumer takes either format.
 
 The trainer's payload (`training/trainer.py`, as the JAX trainer's
 `trainer.py:816-839`) is {epoch, params, batch_stats, opt_state (optax's
@@ -32,6 +34,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from audio_classification_icbhi_tpu_torch.utils import orbax_format
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -251,13 +255,15 @@ def _to_state_dict(tree):
 
 def save_checkpoint(path: str | Path, checkpoint: dict[str, Any],
                     format: str = "msgpack") -> Path:
-    """Write a checkpoint dict as one msgpack file, atomically. Tensor and
-    array leaves are stored as arrays; a config dict becomes a "json:"
-    string leaf."""
-    if format != "msgpack":
-        raise NotImplementedError(
-            f"checkpoint format {format!r} is not ported (ROADMAP.md A4)")
+    """Write a checkpoint dict, atomically: one msgpack file (default;
+    tensor and array leaves stored as arrays, a config dict as a "json:"
+    string leaf) or an orbax directory (format="orbax",
+    training.checkpoint_format)."""
     path = Path(path)
+    if format == "orbax":
+        return orbax_format.save(path, checkpoint)
+    if format != "msgpack":
+        raise ValueError(f"unknown checkpoint format {format!r}")
     path.parent.mkdir(parents=True, exist_ok=True)
     ckpt = dict(checkpoint)
     if isinstance(ckpt.get("config"), dict):
@@ -270,12 +276,11 @@ def save_checkpoint(path: str | Path, checkpoint: dict[str, Any],
 
 
 def load_checkpoint(path: str | Path) -> dict[str, Any]:
-    """Read a msgpack checkpoint written by either package."""
+    """Read a checkpoint written by either package: an orbax directory or
+    a msgpack file."""
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory; the port reads only "
-            f"msgpack checkpoint files so far (ROADMAP.md A4)")
+        return orbax_format.load(path)
     data = _unchunk(_unpackb(path.read_bytes()))
     cfg = data.get("config")
     if isinstance(cfg, str) and cfg.startswith("json:"):
@@ -305,9 +310,10 @@ class AsyncCheckpointWriter:
 
     save() takes a host snapshot of the payload on the calling thread (one
     device->host copy per tensor leaf; the state is a few MB) and queues
-    the msgpack encoding and the file write, the slow part in pure Python,
-    for one worker thread. Files are byte-identical to synchronous
-    save_checkpoint calls. wait() blocks until every queued write is on
+    the encoding and the write (msgpack, the slow part in pure Python, or
+    orbax) for one worker thread. What lands on disk is what synchronous
+    save_checkpoint calls write (msgpack files byte for byte; orbax
+    directories but for their timestamps and random names). wait() blocks until every queued write is on
     disk and re-raises the first worker error; close() also retires the
     thread. Port of `audio_classification_icbhi_tpu/utils/checkpoint.py:169-264`.
     """
@@ -327,7 +333,8 @@ class AsyncCheckpointWriter:
             item = self._q.get()
             try:
                 if item is not None:
-                    save_checkpoint(*item)
+                    path, snapshot, fmt = item
+                    save_checkpoint(path, snapshot, format=fmt)
             except BaseException as e:  # surfaced on the next save()/wait()
                 self._errors.append(e)
             finally:
@@ -339,12 +346,12 @@ class AsyncCheckpointWriter:
         if self._errors:
             raise RuntimeError("async checkpoint write failed") from self._errors.pop(0)
 
-    def save(self, path: str | Path, checkpoint: dict[str, Any]):
+    def save(self, path: str | Path, checkpoint: dict[str, Any], format: str = "msgpack"):
         """Snapshot now, write later; blocks only while 2 writes are queued."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointWriter is closed")
         self._raise_pending()
-        self._q.put((Path(path), _host_snapshot(checkpoint)))
+        self._q.put((Path(path), _host_snapshot(checkpoint), format))
 
     def wait(self):
         self._q.join()

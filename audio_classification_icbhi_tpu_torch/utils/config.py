@@ -72,19 +72,6 @@ def load_config(config_path: str | None = None) -> dict[str, Any]:
     return _deep_update(copy.deepcopy(DEFAULT_CONFIG), user)
 
 
-# Config options this port does not carry yet, with their ROADMAP.md rows.
-# Each raises NotImplementedError where it is asked for; none falls back.
-def check_ported_options(config: dict[str, Any]) -> None:
-    train = config.get("training", {})
-    asked = [
-        (train.get("checkpoint_format", "msgpack") == "orbax",
-         "training.checkpoint_format: orbax (ROADMAP.md A4)"),
-    ]
-    for on, what in asked:
-        if on:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
-
-
 def set_seed(seed: int = 42) -> torch.Generator:
     """Seed Python's and numpy's RNGs and return a torch.Generator seeded
     with `seed`, from which all torch randomness should be drawn."""

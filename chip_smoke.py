@@ -207,7 +207,21 @@ toolkit. Phases:
    phase 9's checkpoint: its NPY equals the counts of a Validator pass on
    the card. The analyzer runs of phases 12, 15, 17 and 20 pass
    --no-plots (the card's machine has no matplotlib). Row-1 launches of
-   (d) and (e) add to the kernels line.
+   (d) and (e) add to the kernels line;
+25. orbax checkpoint directories (`utils/orbax_format.py`, the zstd decoder
+   `native/zstd.cc`): (a) a fresh g++ build of the decoder, timed; (b) the
+   committed JAX-written fixture (`tests/data/orbax_jax_fixture/`, its
+   frames Huffman- and FSE-coded) decoded on the card's host and held to
+   the values recorded beside it; (c) one epoch of `train.main` at
+   config.yaml on phase 9's corpus with `training.checkpoint_format:
+   orbax` (async writes), resumed from its `best_model.ckpt` directory to
+   epoch 2 as a subprocess; (d) that directory served by
+   `ClassifierEngine(device="cuda")` beside an engine on a msgpack re-save
+   of it: every state tensor and the logits of the same seeded clips bit
+   for bit; (e) save and load by the host clock, orbax beside msgpack, with
+   MB on disk, for the trained LightweightCNN + Adam payload and a
+   CompactResNet18 + Adam one. Row-1 launches of (c) and (d) add to the
+   kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -224,6 +238,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import io
 import json
 import math
@@ -277,6 +292,7 @@ from audio_classification_icbhi_tpu_torch.models import fused_infer
 from audio_classification_icbhi_tpu_torch.models.cnn import BatchNorm
 from audio_classification_icbhi_tpu_torch.models.weights import (
     flax_from_state_dict,
+    optax_from_opt_state,
     state_dict_from_flax,
 )
 from audio_classification_icbhi_tpu_torch.ops import _build, mel_kernels
@@ -311,6 +327,7 @@ from audio_classification_icbhi_tpu_torch.step_floor import (
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
 from audio_classification_icbhi_tpu_torch.training.validation import Validator
+from audio_classification_icbhi_tpu_torch.utils import orbax_format
 from audio_classification_icbhi_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from audio_classification_icbhi_tpu_torch.utils.config import load_config, set_seed
 from audio_classification_icbhi_tpu_torch.utils.metrics import (
@@ -326,6 +343,7 @@ SR, N_FFT, HOP, N_MELS = 16000, 2048, 512, 128
 BATCH, CLIP = 128, 5 * SR
 TRAIN_CLIP = 8 * SR  # config.yaml: 8 s clips, batch 32 x accumulation 2
 SEG_CLIP = 3 * SR    # config_segmented.yaml: 3 s cycles, batch 32 x accumulation 4
+ORBAX_FIXTURE = REPO / "tests" / "data" / "orbax_jax_fixture"
 N_RECORDINGS = 920   # ICBHI's whole-recording split, 644/138/138: 10 optimizer steps an epoch
 N_FFT8, HOP8 = 1024, 256  # the analyzer's front end for windows under 1 s (radix-8 kernel)
 WINDOW = SR // 2          # the analyzer's 0.5 s window
@@ -705,6 +723,7 @@ def main() -> int:
         parallel = phase22_data_parallel(dev, rng, card, Path(tmp), corpus, recording, sgd_step)
         fused = phase23_fused_epoch(dev, rng, card, Path(tmp), corpus, sgd_step)
         host = phase24_host_and_reports(dev, rng, card, Path(tmp), corpus)
+        orbax = phase25_orbax(dev, rng, card, Path(tmp), corpus)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -714,9 +733,10 @@ def main() -> int:
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
     serving["launches"] += (resnet["inference"] + segmented["inference"] + parallel["inference"]
-                            + fused["inference"] + host["inference"])
+                            + fused["inference"] + host["inference"] + orbax["inference"])
     training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
-                    + parallel["masked"] + fused["masked"], max_abs_err=masked_err)
+                    + parallel["masked"] + fused["masked"] + orbax["masked"],
+                    max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
               max_abs_err=r8_err)
     r8_masked.update(launches=r8_launches["masked"], max_abs_err=r8_masked_err)
@@ -4287,6 +4307,169 @@ def phase24_host_and_reports(dev, rng, card: str, tmp: Path, corpus: Path) -> di
                                                   "confusion_matrix_val.npy"],
           "confusion_matrix's NPY equals the Validator's counts")
     print(f"phase 24: {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def orbax_record(tree: dict, prefix: str = "") -> dict:
+    """Each leaf of a loaded checkpoint by its joined key path: an array's
+    dtype, shape, sha256 and sum, any other value as it is. The record
+    beside the committed fixture (`tests/data/orbax_jax_fixture.json`)."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(orbax_record(v, name + "/"))
+        elif isinstance(v, torch.Tensor):  # bfloat16, which numpy lacks
+            out[name] = {"dtype": "bfloat16", "shape": list(v.shape),
+                         "sha256": hashlib.sha256(v.view(torch.int16).numpy().tobytes()).hexdigest(),
+                         "sum": v.float().sum().item()}
+        elif isinstance(v, np.ndarray):
+            out[name] = {"dtype": str(v.dtype), "shape": list(v.shape),
+                         "sha256": hashlib.sha256(v.tobytes()).hexdigest(),
+                         "sum": float(np.asarray(v, np.float64).sum())}
+        else:
+            out[name] = v
+    return out
+
+
+def same_leaves(a, b) -> bool:
+    """Two loaded checkpoints hold the same keys, dtypes and bytes."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_leaves(a[k], b[k]) for k in a)
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        return isinstance(b, type(a)) and orbax_record({"x": a}) == orbax_record({"x": b})
+    return a == b
+
+
+def disk_mb(path: Path) -> float:
+    files = [path] if path.is_file() else [f for f in path.rglob("*") if f.is_file()]
+    return sum(f.stat().st_size for f in files) / 1e6
+
+
+def adam_payload(architecture: str) -> dict:
+    """The trainer's payload of a seeded `architecture` at config.yaml after
+    one Adam step: flax-form weights and optax-form moments."""
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["model"]["architecture"] = architecture
+    model = build_model(cfg, dtype=torch.float32, generator=set_seed(cfg["seed"]))
+    opt = build_optimizer("adam", model.named_parameters())
+    gen = torch.Generator().manual_seed(1)
+    for p in model.parameters():
+        p.grad = 1e-3 * torch.randn(p.shape, generator=gen)
+    opt.param_groups[0]["lr"] = 1e-3
+    opt.step()
+    return {"epoch": 0, **flax_from_state_dict(model.state_dict()),
+            "opt_state": optax_from_opt_state(opt, "adam"), "val_loss": 1.0, "config": cfg,
+            "class_weights": np.ones(4, np.float32), "best_metric": 1.0, "patience_counter": 0}
+
+
+def phase25_orbax(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str, int]:
+    """Orbax checkpoint directories on the card's machine (the module
+    docstring's phase 25). Returns row 1's launches by form."""
+    import yaml
+
+    start = time.perf_counter()
+    k16 = mel_kernels.log_mel_radix16dif_fused
+
+    # (a) the decoder's library, and a fresh build of it timed
+    t0 = time.perf_counter()
+    subprocess.run([native.compiler(), *native.CXX_FLAGS, "-o", str(tmp / "zstd25.so"),
+                    str(native.ZSTD_SRC)], check=True, capture_output=True, timeout=300)
+    build_s = time.perf_counter() - t0
+    native.zstd_decompress(orbax_format.zstd_raw_frame(b"orbax"), 5)
+    print(f"phase 25: [{card}] zstd decoder {native.build(native.ZSTD_SRC).name}; a fresh "
+          f"{native.compiler()} build of {native.ZSTD_SRC.name}: {build_s:.2f} s")
+
+    # (b) the JAX-written fixture
+    t0 = time.perf_counter()
+    got = load_checkpoint(ORBAX_FIXTURE)
+    fixture_ms = (time.perf_counter() - t0) * 1e3
+    want = json.loads(ORBAX_FIXTURE.with_suffix(".json").read_text())
+    ok = orbax_record(got) == want
+    print(f"phase 25: [{card}] the JAX-written fixture ({disk_mb(ORBAX_FIXTURE) * 1e3:.1f} kB, "
+          f"{len(want)} leaves) decoded in {fixture_ms:.1f} ms; equal to its record: {ok}")
+    check(ok, "the orbax fixture decodes to its recorded values")
+
+    # (c) one epoch writing orbax directories, resumed from one
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["training"].update(checkpoint_format="orbax", async_checkpoint=True)
+    work = tmp / "run25"
+    work.mkdir()
+    (work / "orbax.yaml").write_text(yaml.safe_dump(cfg))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        history = quiet(train_entry.main, ["--config", "orbax.yaml", "--data-path", str(corpus),
+                                           "--epochs", "1", "--no-plots"])
+        torch.cuda.synchronize()
+        read_epilogue("phase 25 training")
+        wall = time.perf_counter() - t0
+        launches = {"masked": k16.launches_masked, "inference": k16.launches}
+    finally:
+        os.chdir(cwd)
+    best = work / "checkpoints" / "best_model.ckpt"
+    print(f"phase 25: [{card}] train.main, 1 epoch at config.yaml with checkpoint_format orbax: "
+          f"{wall:.1f} s; history {json.dumps(history)}; row-1 launches {launches}; "
+          f"{best.name} {sorted(p.name for p in best.iterdir())}")
+    check(best.is_dir() and (best / "_CHECKPOINT_METADATA").exists()
+          and (best / "state" / "manifest.ocdbt").exists(), "best_model.ckpt is an orbax directory")
+    check(launches["masked"] > 0 and launches["inference"] > 0, "the orbax run trained on row 1")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    out = subprocess.run(
+        [sys.executable, "-m", "audio_classification_icbhi_tpu_torch.train", "--config",
+         "orbax.yaml", "--data-path", str(corpus), "--epochs", "2", "--resume", str(best),
+         "--no-plots"], cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    print("phase 25: resumed from the orbax directory (subprocess), last lines:\n  "
+          + "\n  ".join(out.stdout.strip().splitlines()[-4:]))
+    check(out.returncode == 0, f"resumed training exited {out.returncode}: {out.stderr[-2000:]}")
+    check("Epoch 2/2" in out.stdout and "Resumed from" in out.stdout, "resumed to epoch 2")
+
+    # (d) the directory served, beside a msgpack re-save of it
+    ckpt = load_checkpoint(best)
+    msgpack = save_checkpoint(tmp / "best25.ckpt", ckpt)
+    zero_counts()
+    engines = [ClassifierEngine(path, device="cuda") for path in (best, msgpack)]
+    length = int(engines[0].config["data"]["duration"] * SR)
+    x = torch.from_numpy(synth_clips(rng, 16, length)).to(dev)
+    with torch.inference_mode():
+        logits = [e.model(features_from_wavs(e.frontend, x)) for e in engines]
+    torch.cuda.synchronize()
+    read_epilogue("phase 25 serving")
+    launches["inference"] += k16.launches
+    sds = [e.model.state_dict() for e in engines]
+    same_state = set(sds[0]) == set(sds[1]) and all(torch.equal(sds[0][k], sds[1][k])
+                                                    for k in sds[0])
+    same_logits = torch.equal(logits[0], logits[1])
+    print(f"phase 25: [{card}] ClassifierEngine(device='cuda') on the orbax directory and on a "
+          f"msgpack re-save: {len(sds[0])} state tensors bit-equal {same_state}; logits of 16 "
+          f"seeded {length / SR:g} s clips bit-equal {same_logits} (max |logit| "
+          f"{logits[0].abs().max().item():.3f}); row-1 launches {k16.launches}")
+    check(same_state and same_logits, "orbax and msgpack engines agree bit for bit")
+    check(k16.launches > 0 and bool(torch.isfinite(logits[0]).all()), "served on row 1")
+
+    # (e) save and load, orbax beside msgpack, by the host clock
+    for what, payload in (("LightweightCNN + Adam (phase 25's trained checkpoint)", ckpt),
+                          ("CompactResNet18 + Adam (seeded, one step)", adam_payload("resnet"))):
+        times, loaded = {}, {}
+        for fmt in ("msgpack", "orbax"):
+            path = tmp / f"timing25.{fmt}.ckpt"
+            save, load = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                save_checkpoint(path, payload, format=fmt)
+                save.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                loaded[fmt] = load_checkpoint(path)
+                load.append((time.perf_counter() - t0) * 1e3)
+            times[fmt] = (float(np.median(save)), float(np.median(load)), disk_mb(path))
+        print(f"phase 25: [{card}] {what}: " + "; ".join(
+            f"{fmt} save {t[0]:.1f} ms, load {t[1]:.1f} ms, {t[2]:.2f} MB on disk"
+            for fmt, t in times.items()) + " (median of 3, warm page cache)")
+        check(same_leaves(loaded["orbax"], loaded["msgpack"]), f"{what}: both formats load equal")
+    print(f"phase 25: {time.perf_counter() - start:.1f} s")
     return launches
 
 

@@ -74,15 +74,6 @@ def test_torch_tensors_are_written_as_arrays(tmp_path):
     assert back["b"].dtype == torch.bfloat16 and torch.equal(back["b"], t.to(torch.bfloat16))
 
 
-def test_orbax_directory_raises(tmp_path):
-    d = tmp_path / "orbax_ckpt"
-    d.mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        port_ckpt.load_checkpoint(d)
-    with pytest.raises(NotImplementedError, match="A4"):
-        port_ckpt.save_checkpoint(tmp_path / "x", {}, format="orbax")
-
-
 def test_truncated_file_raises(tmp_path, rng):
     path = port_ckpt.save_checkpoint(tmp_path / "t.ckpt", payload(rng))
     path.write_bytes(path.read_bytes()[:-10])

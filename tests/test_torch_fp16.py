@@ -43,7 +43,7 @@ from audio_classification_icbhi_tpu_torch.step_floor import step_floor, step_mar
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
 from audio_classification_icbhi_tpu_torch.training.trainer_legacy import LegacyTrainer
-from audio_classification_icbhi_tpu_torch.utils.config import check_ported_options, load_config
+from audio_classification_icbhi_tpu_torch.utils.config import load_config
 from test_torch_data_parallel import join, leaves, run_ranks
 from test_torch_train_step import SMALL_FE, no_dropout
 
@@ -287,7 +287,6 @@ def test_fp16_scale_state_resumes_across_trainers(corpus, tmp_path):
     (a float64 pair) resumes in the JAX trainer and a JAX one in the port,
     with the weights and the optimizer state; the resumed port trains on."""
     config = fp16_config(tmp_path, "port")
-    check_ported_options(config)
     port = port_trainer(Trainer, config, corpus)
     assert port.dynamic_loss_scale and port.model.dtype == torch.float16
     port.scale_state = (np.float32(512.0), np.int32(7))

@@ -41,6 +41,7 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
+from audio_classification_icbhi_tpu_torch.utils.checkpoint import load_checkpoint
 from audio_classification_icbhi_tpu_torch.utils.config import load_config
 from audio_classification_icbhi_tpu_torch.utils.tensorboard import read_scalars
 from test_torch_analyzers import _checkpoint, jax_engine, port_engine, recording  # noqa: F401
@@ -55,9 +56,9 @@ def corpus(tmp_path_factory):
                                   cycles_per_recording=2, sample_rate=4000, seed=1)
 
 
-def entry_config(tmp: Path, name: str, architecture: str) -> Path:
+def entry_config(tmp: Path, name: str, architecture: str, **training) -> Path:
     """config.yaml at a 4 kHz, 0.8 s front end, batch 8, fp32, SGD, two
-    epochs; the ResNet's dropout at 0."""
+    epochs; the ResNet's dropout at 0; `training` over the training keys."""
     import yaml
 
     config = load_config(str(REPO / "config.yaml"))
@@ -69,7 +70,7 @@ def entry_config(tmp: Path, name: str, architecture: str) -> Path:
                               mixed_precision=False, optimizer="sgd", learning_rate=0.01,
                               scheduler="cosine", save_every=1,
                               checkpoint_dir=str(tmp / name / "ckpt"),
-                              log_dir=str(tmp / name / "runs"))
+                              log_dir=str(tmp / name / "runs"), **training)
     path = tmp / f"{name}.yaml"
     path.write_text(yaml.safe_dump(config))
     return path
@@ -134,6 +135,23 @@ def test_two_ranks_match_one_rank(corpus, tmp_path):
     port_train.main(["--config", str(one), "--data-path", str(corpus), "--device", "cpu",
                      "--no-plots"])
     assert_same_history(history(tmp_path / "two"), history(tmp_path / "one"))
+
+
+def test_two_ranks_write_and_resume_orbax(corpus, tmp_path):
+    """training.checkpoint_format: orbax under two gloo ranks: rank 0 alone
+    writes each checkpoint directory, both ranks read it back to resume,
+    and the directory holds the state the run trained."""
+    config = entry_config(tmp_path, "orbax", "cnn", checkpoint_format="orbax")
+    entry(config, corpus, "--epochs", "1", "--num-devices", "2", cwd=tmp_path)
+    ckpt = tmp_path / "orbax" / "ckpt"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["best_model.ckpt", "checkpoint_epoch_1.ckpt"]
+    assert all(p.is_dir() and (p / "_CHECKPOINT_METADATA").exists() for p in ckpt.iterdir())
+    saved = load_checkpoint(ckpt / "checkpoint_epoch_1.ckpt")
+    assert saved["epoch"] == 0 and saved["config"]["training"]["checkpoint_format"] == "orbax"
+    out = entry(config, corpus, "--resume", str(ckpt / "checkpoint_epoch_1.ckpt"),
+                "--num-devices", "2", cwd=tmp_path)
+    assert "Resumed from" in out and "Epoch 2/2" in out and "Epoch 1/2" not in out
+    assert load_checkpoint(ckpt / "checkpoint_epoch_2.ckpt")["epoch"] == 1
 
 
 @pytest.mark.parametrize("argv, gpus, want", [

@@ -138,8 +138,7 @@ def test_build_failure_warns_with_the_compiler_output(tmp_path, monkeypatch):
     broken.write_text("this is not C++\n")
     monkeypatch.setattr(native, "SRC", broken)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_tried", False)
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_loaded", {})
     with pytest.warns(RuntimeWarning, match="could not build fastwav.cc") as caught:
         assert not native.available()
     assert "error" in str(caught[0].message)

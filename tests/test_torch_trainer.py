@@ -1,7 +1,7 @@
 """The port's training loop and data pipeline against the JAX package's,
 on the CPU: the loaders and dataset, the synthetic corpus, two trainers
-running the same epochs, resuming across packages, the train entry point and
-the options the port does not carry yet.
+running the same epochs, resuming across packages in either checkpoint
+format, the train entry point and the options that once raised.
 
 Both trainers start from the same weights (the JAX init carried across),
 fp32, with augmentation off and dropout inert (an interceptor on the JAX
@@ -44,7 +44,7 @@ from audio_classification_icbhi_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from audio_classification_icbhi_tpu_torch.utils.config import check_ported_options, load_config
+from audio_classification_icbhi_tpu_torch.utils.config import load_config
 from audio_classification_icbhi_tpu_torch.utils.icbhi_metrics import calculate_icbhi_score
 from test_torch_train_step import no_dropout
 
@@ -180,32 +180,47 @@ def _port_trainer(config, corpus, variables):
     return trainer
 
 
-@pytest.fixture(scope="module")
-def runs(corpus, tmp_path_factory):
+def _cross_package_runs(corpus, tmp: Path, fmt: str) -> dict:
     """The JAX trainer and the port's, 2 epochs each from the same weights,
-    then each resumed from the other's epoch-1 checkpoint for epoch 2."""
-    tmp = tmp_path_factory.mktemp("runs")
+    each writing `fmt` checkpoints, then each resumed from the other's
+    epoch-1 checkpoint for epoch 2."""
+
+    def config(name):
+        c = small_config(tmp, name)
+        c["training"]["checkpoint_format"] = fmt
+        return c
+
     mp = pytest.MonkeyPatch()
     try:
-        jt = _jax_trainer(small_config(tmp, "jax"), corpus, mp)
+        jt = _jax_trainer(config("jax"), corpus, mp)
         variables = {"params": jax.tree_util.tree_map(np.asarray, jt.params),
                      "batch_stats": jax.tree_util.tree_map(np.asarray, jt.batch_stats)}
         with nn.intercept_methods(no_dropout):
             jax_history = jt.train()
-        pt = _port_trainer(small_config(tmp, "port"), corpus, variables)
+        pt = _port_trainer(config("port"), corpus, variables)
         port_history = pt.train()
 
         # the port resumes from the JAX trainer's epoch-1 checkpoint
-        resumed = _port_trainer(small_config(tmp, "port_from_jax"), corpus, variables)
+        resumed = _port_trainer(config("port_from_jax"), corpus, variables)
         port_resumed = resumed.train(resume_from=str(tmp / "jax" / "ckpt" / "checkpoint_epoch_1.ckpt"))
         # the JAX trainer resumes from the port's
-        jr = _jax_trainer(small_config(tmp, "jax_from_port"), corpus, mp)
+        jr = _jax_trainer(config("jax_from_port"), corpus, mp)
         with nn.intercept_methods(no_dropout):
             jax_resumed = jr.train(resume_from=str(tmp / "port" / "ckpt" / "checkpoint_epoch_1.ckpt"))
     finally:
         mp.undo()
     return dict(tmp=tmp, jax=jax_history, port=port_history, port_resumed=port_resumed,
                 jax_resumed=jax_resumed)
+
+
+@pytest.fixture(scope="module")
+def runs(corpus, tmp_path_factory):
+    return _cross_package_runs(corpus, tmp_path_factory.mktemp("runs"), "msgpack")
+
+
+@pytest.fixture(scope="module")
+def orbax_runs(corpus, tmp_path_factory):
+    return _cross_package_runs(corpus, tmp_path_factory.mktemp("orbax_runs"), "orbax")
 
 
 def _assert_history_close(got, want, epochs=slice(None)):
@@ -233,17 +248,26 @@ def test_tensorboard_tags_match(runs):
                                    rtol=1e-3)
 
 
-def test_port_resumes_from_jax_checkpoint(runs):
+@pytest.mark.parametrize("fmt", ["msgpack", "orbax"])
+def test_port_resumes_from_jax_checkpoint(runs, request, fmt):
     """Epoch 2 of the port resumed from the JAX trainer's epoch-1 checkpoint
-    matches epoch 2 of both uninterrupted runs."""
-    assert len(runs["port_resumed"]["train_loss"]) == 1
-    _assert_history_close(runs["port_resumed"], runs["jax"], epochs=slice(1, 2))
-    _assert_history_close(runs["port_resumed"], runs["port"], epochs=slice(1, 2))
+    (a msgpack file, or an orbax directory) matches epoch 2 of both
+    uninterrupted runs."""
+    got = runs if fmt == "msgpack" else request.getfixturevalue("orbax_runs")
+    ckpt = got["tmp"] / "jax" / "ckpt" / "checkpoint_epoch_1.ckpt"
+    assert ckpt.is_dir() == (fmt == "orbax")
+    assert len(got["port_resumed"]["train_loss"]) == 1
+    _assert_history_close(got["port_resumed"], runs["jax"], epochs=slice(1, 2))
+    _assert_history_close(got["port_resumed"], runs["port"], epochs=slice(1, 2))
 
 
-def test_jax_resumes_from_port_checkpoint(runs):
-    assert len(runs["jax_resumed"]["train_loss"]) == 1
-    _assert_history_close(runs["jax_resumed"], runs["port"], epochs=slice(1, 2))
+@pytest.mark.parametrize("fmt", ["msgpack", "orbax"])
+def test_jax_resumes_from_port_checkpoint(runs, request, fmt):
+    got = runs if fmt == "msgpack" else request.getfixturevalue("orbax_runs")
+    ckpt = got["tmp"] / "port" / "ckpt" / "checkpoint_epoch_1.ckpt"
+    assert ckpt.is_dir() == (fmt == "orbax")
+    assert len(got["jax_resumed"]["train_loss"]) == 1
+    _assert_history_close(got["jax_resumed"], runs["port"], epochs=slice(1, 2))
 
 
 def test_checkpoint_payload_matches_jax_keys(runs):
@@ -266,7 +290,7 @@ def test_icbhi_trainer_selects_on_icbhi_score(corpus, tmp_path):
     assert set(ckpt["icbhi_metrics"]) == {"avg_sensitivity", "avg_specificity"}
 
 
-# --- entry point and unported options -----------------------------------------
+# --- entry point and options ---------------------------------------------------
 
 def test_train_entry_point_runs_on_cpu(corpus, tmp_path):
     import yaml
@@ -292,19 +316,6 @@ def test_train_entry_point_needs_a_gpu_by_default(corpus, monkeypatch):
         port_train.main(["--data-path", str(corpus), "--epochs", "1"])
 
 
-@pytest.mark.parametrize("section, key, value, row", [
-    ("training", "checkpoint_format", "orbax", "A4"),
-])
-def test_unported_options_raise(corpus, tmp_path, section, key, value, row):
-    config = small_config(tmp_path, "x")
-    config[section][key] = value
-    with pytest.raises(NotImplementedError, match=row):
-        check_ported_options(config)
-    with pytest.raises(NotImplementedError, match=row):
-        Trainer(build_model(small_config(tmp_path, "y")), ICBHIDataset(corpus, "train", config),
-                ICBHIDataset(corpus, "val", config), config, device="cpu")
-
-
 @pytest.mark.parametrize("steps_per_dispatch", [None])
 def test_cache_options_now_run(corpus, tmp_path, steps_per_dispatch):
     """data.cache_on_device (and training.steps_per_dispatch), which raised
@@ -321,7 +332,6 @@ def test_cache_options_now_run(corpus, tmp_path, steps_per_dispatch):
         config["training"]["batch_size"] = 2  # 8 train clips: 2 groups of 2 batches
         if steps_per_dispatch is not None:
             config["training"]["steps_per_dispatch"] = steps_per_dispatch
-        check_ported_options(config)
         (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(config))
         return port_train.main(["--config", str(tmp_path / f"{name}.yaml"), "--data-path",
                                 str(corpus), "--device", "cpu", "--no-plots",
@@ -349,7 +359,6 @@ def test_model_options_now_run(corpus, tmp_path, key, value):
         sd = build_model(config, generator=torch.Generator().manual_seed(9)).state_dict()
         config["model"]["pretrained_path"] = str(tmp_path / "cnn.pt")
         torch.save({"model_state_dict": sd}, config["model"]["pretrained_path"])
-    check_ported_options(config)
     trainer = Trainer(build_model(config), ICBHIDataset(corpus, "train", config),
                       ICBHIDataset(corpus, "val", config), config, device="cpu")
     if key == "pretrained":
