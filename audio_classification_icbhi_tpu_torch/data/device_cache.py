@@ -2,9 +2,10 @@
 
 Port of `audio_classification_icbhi_tpu/data/device_cache.py:27-167`. The
 whole decoded waveform tensor lives in device memory, decoded once at
-construction; per step only index batches cross from the host, and the
-fused multi-step epoch (`parallel/data_parallel.make_step_fns`'s
-`train_many` / `eval_many`) gathers its rows on the device.
+construction (whole on every rank of a process group); per step only
+index batches cross from the host, and the fused multi-step epoch
+(`parallel/data_parallel.make_step_fns`'s `train_many` / `eval_many`)
+gathers its rows on the device.
 
 Storage dtype (`data.cache_dtype`): 16-bit-PCM-sourced audio (the whole
 ICBHI corpus, the synthetic corpora) is kept as int16 and dequantized on the
@@ -74,15 +75,27 @@ class DeviceCachedLoader(BatchLoader):
     construction, in chunks of 512 through `_load_batch`, and `__iter__`
     yields (wavs: (B, L) float32 tensor on `device`, labels: (B,) numpy
     int32). Labels stay on the host: the loss masks, metrics and ICBHI
-    score want them there. Every row of the dataset is cached, so a rank's
-    `shard` does not apply.
+    score want them there.
+
+    Every row of the dataset is cached, on every rank of a process group
+    too, as the JAX loader replicates its cache over the mesh (`P()`): a
+    shuffled epoch draws any row for any rank's columns, so a rank's
+    `shard` of rows does not apply. Each rank decodes every row with the
+    same decoder from the same files, so the replicas hold the same bytes.
+    `columns` is this rank's `local_batch_slice` of a batch: `__iter__`
+    then gathers only those columns of each batch's indices and yields
+    every row's labels, as `BatchLoader(shard=...)` does (a short last
+    batch leaves some ranks' columns short or empty); `epoch_index_batches`
+    and `cache` stay global, and the fused epoch takes its columns itself.
     """
 
     def __init__(self, dataset, batch_size: int = 32, *,
-                 device: str | torch.device = "cuda", cache_dtype: str = "auto", **kwargs):
+                 device: str | torch.device = "cuda", cache_dtype: str = "auto",
+                 columns: slice | None = None, **kwargs):
         super().__init__(dataset, batch_size, **kwargs)
         if self.rows is not None:
             raise ValueError("the device cache holds every row: it takes no rank shard")
+        self.columns = columns
         if cache_dtype not in ("auto", "int16", "float32"):
             raise ValueError(f"cache_dtype must be auto|int16|float32, got {cache_dtype!r}")
         n = len(dataset)
@@ -137,5 +150,6 @@ class DeviceCachedLoader(BatchLoader):
 
     def __iter__(self):
         for idxs in self._batch_indices():
-            yield self.gather(idxs), self.labels_all[idxs]
+            own = idxs if self.columns is None else idxs[self.columns]
+            yield self.gather(own), self.labels_all[idxs]
         self._epoch += 1

@@ -41,10 +41,23 @@ gathers its batches from the device-resident cache (`data/device_cache.py`),
 so only indices cross from the host. Step s of a `train_many` call draws
 from the generator the per-step path seeds for step step0 + s
 (`step_seed`), the counterpart of the JAX package's `fold_in(key, step0 +
-s)`, so the two paths train alike. Eval runs G = max(1, 128 // B) batches
-as one (G·B)-row forward. On a CUDA device one optimizer step, and one eval
+s)`, so the two paths train alike. Eval runs G = max(1, 128 // b) batches
+as one (G·b)-row forward. On a CUDA device one optimizer step, and one eval
 group, is a CUDA graph captured once and replayed per step
 (`parallel/step_graph.py`); on the CPU the same functions run eagerly.
+
+Over a process group the fused epoch is the JAX `train_shard_many` /
+`eval_shard_many` under shard_map: every rank holds the whole cache (the
+JAX `P()`), takes its `local_batch_slice` columns of the global (K, A, B)
+or (S, B) indices (the JAX in_specs' batch sharding) and gathers them from
+its own replica. A train step is the sharded `train_step` with its
+collectives, so on the card the captured graph holds them: Σw a
+microbatch, the cross-rank BatchNorm's all-gather and all-reduce, the flat
+gradient all-reduce and the metrics. An eval group needs no peer (eval
+BatchNorm reads running statistics), so its graph holds no collective;
+after the replays one all-reduce sums the (3, S) per-batch sums and one
+all-gather joins the (S, b) predictions along the batch axis in rank
+order, the JAX `P(None, "data")` out_spec's global (S, B).
 """
 
 from __future__ import annotations
@@ -252,6 +265,13 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         128 // B) batches a forward, S padded to a multiple of G with
         mask-0 rows that are cut off again.
 
+    On a mesh with a group, idxs, labels and mask are the global arrays
+    (B the global batch); each rank runs its `local_batch_slice` columns,
+    with the rank in each step's seed (not at world size 1, as
+    `Trainer.step_generator`), and eval_many's G counts this rank's b =
+    B / N columns. eval_many returns the global sums and the (S, B)
+    predictions on every rank.
+
     On a CUDA device both replay CUDA graphs (`parallel/step_graph.py`): the
     optimizer step is captured on its first call, after that call's first
     step has run eagerly as the capture's warm-up, and again, with no
@@ -264,8 +284,17 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
     0-d tensor each call fills, so that a new rate (each epoch under
     cosine) needs no new capture. SGD's foreach update takes the rate only
     as a number, so its graph holds the rate it was captured at and is
-    captured again when the rate changes. Over a process group they raise:
-    the fused epoch runs on one rank (ROADMAP.md A6).
+    captured again when the rate changes. Over a group the train graph
+    holds the step's NCCL collectives. The key that decides a capture
+    changes at the same call on every rank (the same calls, rates and
+    restores run everywhere), and only a kind's first capture warms up, so
+    the warm-up's eager collectives, which also create the NCCL
+    communicator before any capture, run on every rank together; a
+    re-capture launches nothing. Over a group both kinds capture in
+    "thread_local" mode: ProcessGroupNCCL's watchdog thread queries the
+    events of eager collectives at any time, and the default "global" mode
+    lets a capture forbid such calls to every thread of the process. A
+    capture that fails raises; nothing falls back to eager steps.
 
     The step runs one flattened front end over all A·B examples, then the
     model once per microbatch, in order. `accum_mode` is accepted for the
@@ -375,11 +404,10 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
     graphs: dict[str, GraphedStep] = {}
     captures: list[tuple[str, float]] = []  # (kind, host seconds) of every capture
     sides: dict[str, tuple] = {}  # kind -> (memory pool, capture stream)
-
-    def one_rank(what: str) -> None:
-        if dp is not None:
-            raise NotImplementedError(
-                f"{what} over a process group: the fused epoch runs on one rank (ROADMAP.md A6)")
+    # the watchdog's event queries must not invalidate a capture (above)
+    capture_mode = "global" if dp is None else "thread_local"
+    # step seeds carry the rank on a mesh of several, as Trainer.step_generator
+    seed_rank = dp.rank if ranks > 1 else None
 
     def state_tensors() -> list[torch.Tensor]:
         return [t for st in optimizer.state.values() for t in st.values() if torch.is_tensor(t)]
@@ -414,13 +442,13 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
 
     def train_many(cache: torch.Tensor, idxs, labels, class_weights: torch.Tensor, lr,
                    epoch: int, step0: int):
-        one_rank("train_many")
         device = cache.device
-        rows = to_device(device, torch.stack([torch.as_tensor(idxs, dtype=torch.int64),
-                                              torch.as_tensor(labels, dtype=torch.int64)],
-                                             dim=1))
+        idxs = torch.as_tensor(idxs, dtype=torch.int64)
+        own = local_batch_slice(idxs.shape[-1], dp)  # this rank's columns
+        rows = to_device(device, torch.stack(
+            [idxs[..., own], torch.as_tensor(labels, dtype=torch.int64)[..., own]], dim=1))
         k = rows.shape[0]
-        seeds = [step_seed(seed, epoch, step0 + s) for s in range(k)]
+        seeds = [step_seed(seed, epoch, step0 + s, seed_rank) for s in range(k)]
         out = torch.empty((k, 4), device=device)
         if device.type != "cuda":
             for s in range(k):
@@ -439,7 +467,8 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
                                          static_rate[0] if device_lr else rate, generator)
 
                 return GraphedStep(fn, [rows[0]] + ([rate] if device_lr else []), stream=stream,
-                                   warm=warm, generator=generator, pool=pool)
+                                   warm=warm, generator=generator, pool=pool,
+                                   capture_error_mode=capture_mode)
 
             step = graphed("train", device, lambda: (
                 cache.data_ptr(), tuple(cache.shape), cache.dtype, tuple(rows.shape[1:]),
@@ -454,16 +483,17 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
                 "grad_norm": out[:, 3]}
 
     def eval_many(cache: torch.Tensor, idxs, labels, mask, class_weights: torch.Tensor):
-        one_rank("eval_many")
         device = cache.device
         idxs = torch.as_tensor(idxs, dtype=torch.int64)
-        s, b = idxs.shape
+        s, b_all = idxs.shape
         if s == 0:
             z = torch.zeros(0, device=device)
-            return z, z, z, torch.zeros((0, b), dtype=torch.int64, device=device)
-        g = max(1, 128 // b)
+            return z, z, z, torch.zeros((0, b_all), dtype=torch.int64, device=device)
+        own = local_batch_slice(b_all, dp)  # this rank's columns
         rows = torch.stack([idxs, torch.as_tensor(labels, dtype=torch.int64),
-                            torch.as_tensor(mask).to(torch.int64)])  # (3, S, B)
+                            torch.as_tensor(mask).to(torch.int64)])[:, :, own]  # (3, S, b)
+        b = rows.shape[2]
+        g = max(1, 128 // b)
         pad = (-s) % g
         if pad:  # repeated rows of the first batch, masked out
             fill = rows[:, :1].expand(3, pad, b).clone()
@@ -480,7 +510,8 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
                 def fn(r):
                     return eval_group(cache, r, class_weights)
 
-                return GraphedStep(fn, [rows[0]], stream=stream, warm=warm, pool=pool)
+                return GraphedStep(fn, [rows[0]], stream=stream, warm=warm, pool=pool,
+                                   capture_error_mode=capture_mode)
 
             step = graphed("eval", device, lambda: (
                 cache.data_ptr(), tuple(cache.shape), cache.dtype, (g, b),
@@ -488,7 +519,11 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
             for i in range(took_first(step, out), n):
                 out[i].copy_(step.replay(rows[i]))
         out = out.reshape(n * g, 3 + b)[:s]
-        return out[:, 0], out[:, 1], out[:, 2], out[:, 3:].long()
+        # the global sums, and every rank's columns of the predictions in
+        # rank order (no-ops without a group)
+        sums = all_reduce_sum(out[:, :3].T.contiguous(), dp)
+        preds = all_gather_rows(out[:, 3:].long(), dp, dim=1)
+        return sums[0], sums[1], sums[2], preds
 
     # the captured steps by kind ("train", "eval") and every capture so far,
     # for inspection

@@ -10,7 +10,12 @@ between CPU processes. A `Mesh` is one rank's view of it:
 - `rank`, `world_size`: this process's index and the number of processes
   (JAX's `mesh.devices.size`, one device a rank);
 - `group`: the process group, or None when no process group exists (one
-  process: the single-device path, with no collective at all).
+  process: the single-device path, with no collective at all);
+- `hosts`: the machines the group spans, the port's counterpart of
+  `jax.process_count()`: a JAX process drives every device of its machine,
+  a port rank drives one device, so N ranks on one machine are one JAX
+  process. The device cache stays on over the ranks of one machine and is
+  turned off over several (`training/trainer.py`).
 
 The helpers keep the JAX names: `get_mesh`, `init_distributed`,
 `local_batch_slice`, `shard_batch`, `replicate`. JAX's
@@ -39,6 +44,7 @@ class Mesh:
     rank: int = 0
     world_size: int = 1
     group: Any = None
+    hosts: int = 1
 
 
 def _distributed():
@@ -56,8 +62,9 @@ def _local_index(rank: int) -> int:
 def get_mesh(num_devices: int | None = None, device: str | torch.device = "cuda") -> Mesh:
     """This rank's data mesh. Inside a process group (`init_distributed`):
     its rank, world size and GPU (`num_devices`, if given, must be the
-    world size). Without one: a mesh of one device, `device`; more devices
-    need one rank each."""
+    world size) and the number of machines it spans (one all_gather_object
+    of the host names, so every rank of the group must call it). Without
+    one: a mesh of one device, `device`; more devices need one rank each."""
     dist = _distributed()
     if dist is None:
         if num_devices not in (None, 1):
@@ -70,10 +77,14 @@ def get_mesh(num_devices: int | None = None, device: str | torch.device = "cuda"
     if num_devices is not None and num_devices != world:
         raise ValueError(f"requested {num_devices} devices, the process group has {world} "
                          "ranks (one device each)")
+    import socket
+
     rank = dist.get_rank()
     local = torch.device("cuda", _local_index(rank)) if torch.device(device).type == "cuda" \
         else torch.device("cpu")
-    return Mesh(local, rank, world, dist.group.WORLD)
+    names = [None] * world
+    dist.all_gather_object(names, socket.gethostname())
+    return Mesh(local, rank, world, dist.group.WORLD, hosts=len(set(names)))
 
 
 def init_distributed(coordinator_address: str | None = None, num_processes: int | None = None,
@@ -183,13 +194,15 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return t
 
 
-def all_gather_rows(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """Every rank's (b, ...) tensor concatenated in rank order: (N·b, ...),
-    as a tiled all_gather. No-op without a group."""
+def all_gather_rows(t: torch.Tensor, mesh: Mesh | None, dim: int = 0) -> torch.Tensor:
+    """Every rank's tensor concatenated in rank order along `dim`: (N·b,
+    ...) from (b, ...) at dim 0, as a tiled all_gather; (S, N·b) from (S, b)
+    at dim 1, the batch axis of a (steps, batch) array. No-op without a
+    group."""
     if mesh is None or mesh.group is None:
         return t
     import torch.distributed as dist
 
     parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)

@@ -8,10 +8,12 @@ where the eager step makes hundreds of launches. On the CPU the same step
 functions run eagerly (there are no CPU graphs).
 
 Capture follows torch's recipe (`torch.cuda.graph`, the default "global"
-error mode): a warm-up call on a side stream first, where everything lazy
-happens outside the capture (the kernels' nvcc build and device tables,
-cuBLAS's workspace, the optimizer's state), then the capture on the same
-stream. The warm-up is the caller's first real step, run eagerly: its
+error mode, or "thread_local" where the caller asks: in a process group,
+whose watchdog thread queries CUDA events while a capture runs): a warm-up
+call on a side stream first, where everything lazy happens outside the
+capture (the kernels' nvcc build and device tables, cuBLAS's workspace,
+the optimizer's state, the NCCL communicator), then the capture on the
+same stream. The warm-up is the caller's first real step, run eagerly: its
 outputs are that step's, and the replays go on from the second. A capture
 that fails raises; nothing goes back to eager launches.
 
@@ -63,13 +65,15 @@ class GraphedStep:
     that has run before). `generator` is registered with the graph. `pool`
     is a memory-pool handle shared with earlier captures of the same step
     on the same stream (`torch.cuda.graph_pool_handle()`), so that a
-    re-capture reuses their memory. `kernel_launches` maps each counted
+    re-capture reuses their memory. `capture_error_mode` is
+    `torch.cuda.graph`'s. `kernel_launches` maps each counted
     kernel wrapper (function, attribute) to the launches one replay makes;
     `capture_s` is the host time of the warm-up and the capture."""
 
     def __init__(self, fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor], *,
                  stream: torch.cuda.Stream, warm: bool = False,
-                 generator: torch.Generator | None = None, pool=None):
+                 generator: torch.Generator | None = None, pool=None,
+                 capture_error_mode: str = "global"):
         t0 = time.perf_counter()
         device = inputs[0].device
         current = torch.cuda.current_stream(device)
@@ -86,7 +90,8 @@ class GraphedStep:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode=capture_error_mode):
             self.outputs = fn(*self.static)
         after = _read_counts()
         self.kernel_launches = {}

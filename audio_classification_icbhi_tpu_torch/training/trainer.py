@@ -44,10 +44,18 @@ once an epoch. Any steps_per_dispatch other than 1 (absent, 0 or K) runs
 the whole epoch a call: in the JAX package K sizes the scanned program,
 here every step is a graph replay of its own whatever K is. On a
 CUDA device each step and each eval group is a replayed CUDA graph, and
-Adam is built `capturable`. Where the trainer has a process group the cache
-is turned off, as the JAX trainer turns it off over several processes.
-The fp16 loss-scaled step has no fused form, as in the JAX package: it runs
-per step on the cache.
+Adam is built `capturable`. The fp16 loss-scaled step has no fused form,
+as in the JAX package: it runs per step on the cache.
+
+Over the ranks of one machine (`train --num-devices N`, JAX's one process
+over N devices) the cache stays on: every rank holds both splits whole,
+and every read of it takes this rank's `local_batch_slice` columns of each
+global batch (the fused epoch and its tail step, the per-step path and
+the per-batch validation through the loader's `columns`), so the fused
+epoch trains as the sharded per-step path does. The cache is turned off,
+with the JAX trainer's message, only where the group spans several
+machines (`mesh.hosts > 1`), as the JAX trainer turns it off over several
+processes (`jax.process_count() > 1`).
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
 from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     Mesh,
     barrier,
+    local_batch_slice,
     replicate,
     shard_batch,
 )
@@ -152,7 +161,9 @@ class Trainer:
         self.class_weights = torch.as_tensor(self._calculate_class_weights(), device=self.device)
         dcfg = config["data"]
         self.cache_on_device = bool(dcfg.get("cache_on_device", False))
-        if self.cache_on_device and mesh is not None and mesh.group is not None:
+        # this rank's columns of a global batch (every column without a mesh)
+        self.columns = local_batch_slice(self.batch_size, mesh)
+        if self.cache_on_device and mesh is not None and mesh.hosts > 1:
             print("cache_on_device: disabled under multi-host training "
                   "(the fused dispatch paths are single-controller); "
                   "using the per-step host loader.")
@@ -162,9 +173,10 @@ class Trainer:
             cache_dtype = dcfg.get("cache_dtype", "auto")
             self.train_loader = DeviceCachedLoader(
                 train_dataset, self.batch_size, device=self.device, shuffle=True,
-                drop_last=True, seed=self.seed, cache_dtype=cache_dtype)
+                drop_last=True, seed=self.seed, cache_dtype=cache_dtype, columns=self.columns)
             self.val_loader = DeviceCachedLoader(val_dataset, self.batch_size, device=self.device,
-                                                 shuffle=False, cache_dtype=cache_dtype)
+                                                 shuffle=False, cache_dtype=cache_dtype,
+                                                 columns=self.columns)
             mb = (self.train_loader.nbytes + self.val_loader.nbytes) / 1e6
             print(f"Device cache: {mb:.0f} MB of waveforms resident on {self.device}")
         else:
@@ -327,8 +339,9 @@ class Trainer:
 
     def _train_epoch_fused(self, epoch: int, lr: float) -> tuple[float, float]:
         """The epoch's full accumulation groups through one `train_many`
-        call against the device cache; the tail group through one
-        `train_step`. Step g draws from the generator the per-step path
+        call against the device cache (the global indices: each rank takes
+        its columns); the tail group through one `train_step` on this
+        rank's columns. Step g draws from the generator the per-step path
         gives group g, so both paths train alike."""
         loader = self.train_loader
         idxs = loader.epoch_index_batches()  # (S, B)
@@ -349,10 +362,10 @@ class Trainer:
             counts.append(m["count"])
         tail = s_total - groups * a
         if tail:
-            sl = slice(groups * a, s_total)
+            sl, own = slice(groups * a, s_total), self.columns
             m = self.steps.train_step(
-                loader.gather(idxs[sl].reshape(tail, bsz)),
-                self._to_device(labels[sl].reshape(tail, bsz)).long(), self.class_weights, lr,
+                loader.gather(idxs[sl, own]),
+                self._to_device(labels[sl, own]).long(), self.class_weights, lr,
                 generator=self.step_generator(epoch, groups))
             losses.append(m["loss"][None])
             corrects.append(m["correct"][None])
@@ -366,8 +379,8 @@ class Trainer:
             return self._train_epoch_fused(epoch, lr)
         step_metrics = []
         for step_idx, (wavs, labels) in enumerate(self._grouped_batches(self.train_loader)):
-            # on a mesh the loader decoded this rank's rows alone, and gave
-            # every row's label
+            # on a mesh the loader decoded (or gathered from the cache) this
+            # rank's rows alone, and gave every row's label
             wavs = self._to_device(wavs)
             labels = shard_batch(self.mesh, labels, axis=1) if self.mesh is not None \
                 else self._to_device(labels)
@@ -389,7 +402,8 @@ class Trainer:
         padded to batch_size with mask-0 rows (index 0) inside the same
         call; read from the device once (twice with collect_predictions).
         The loss is the mean of the per-batch criterion values, as on the
-        per-batch path."""
+        per-batch path. Over ranks each runs its columns and every rank
+        gets the global sums and predictions, in loader order."""
         loader = self.val_loader
         batches = loader._batch_indices()  # loader order: full batches, then the tail
         if not batches:

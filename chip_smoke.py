@@ -221,7 +221,27 @@ toolkit. Phases:
    for bit; (e) save and load by the host clock, orbax beside msgpack, with
    MB on disk, for the trained LightweightCNN + Adam payload and a
    CompactResNet18 + Adam one. Row-1 launches of (c) and (d) add to the
-   kernels line.
+   kernels line;
+26. the fused epoch on an NCCL process group (the NCCL version printed;
+   capture needs 2.9.6): phase 8's lr-1 SGD step through `train_many` on
+   a world-size-1 group (cross-rank BatchNorm, the all-reduces), the
+   capture's eager warm-up against phase 8's step without a group on the
+   card and the CPU by its bound, the collectives counted in the warm-up
+   and the capture (24 each), then a replay against an eager NCCL step
+   from the same state; `Trainer` at config.yaml (bf16, capturable Adam,
+   augmentation and dropout on, `cache_on_device`) on that group for 3
+   epochs on phase 23's 294 / 63 clips at steps_per_dispatch 1 and 0, the
+   fused history within rtol 1e-4 of the per-step one, and within rounding
+   of phase 23's fused run without a group (max(rtol 1e-4, twice how far
+   that run moves from initial weights 1e-6 off, seeds 0-7)); the train
+   graph's nodes by kind (its NCCL kernels) beside phase 23's, the eval
+   graph's (no collective), the captures' ms, host calls a step, the
+   graphed step's and eval group's device ms; one epoch of `train
+   --multihost --num-processes 1` at config.yaml with the cache on as a
+   subprocess printing its launch counts (the cache line, no "disabled"
+   line), its best checkpoint served; two NCCL ranks fused against one
+   where two GPUs are visible (else it prints that this part did not
+   run). Its row-1 launches add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -320,6 +340,7 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
 )
 from audio_classification_icbhi_tpu_torch.parallel.step_graph import launch_counters
 from audio_classification_icbhi_tpu_torch.step_floor import (
+    FLOOR_SEEDS,
     param_arrays,
     step_floor,
     step_margins,
@@ -724,6 +745,7 @@ def main() -> int:
         fused = phase23_fused_epoch(dev, rng, card, Path(tmp), corpus, sgd_step)
         host = phase24_host_and_reports(dev, rng, card, Path(tmp), corpus)
         orbax = phase25_orbax(dev, rng, card, Path(tmp), corpus)
+        ranks = phase26_fused_ranks(dev, card, Path(tmp), corpus, sgd_step, fused)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -733,9 +755,10 @@ def main() -> int:
     for name, numbers in conv_rows.items():
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
     serving["launches"] += (resnet["inference"] + segmented["inference"] + parallel["inference"]
-                            + fused["inference"] + host["inference"] + orbax["inference"])
+                            + fused["inference"] + host["inference"] + orbax["inference"]
+                            + ranks["inference"])
     training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
-                    + parallel["masked"] + fused["masked"] + orbax["masked"],
+                    + parallel["masked"] + fused["masked"] + orbax["masked"] + ranks["masked"],
                     max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
               max_abs_err=r8_err)
@@ -3804,6 +3827,41 @@ P23_TRAIN, P23_VAL, P23_EPOCHS = 294, 63, 3
 RADIX8_STEMS = ("log_mel_radix8dif_kernel", "log_mel_epilogue_kernel")
 
 
+def p23_config(corpus: Path) -> dict:
+    """config.yaml with the device cache on, over `corpus`."""
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["data"].update(dataset_path=str(corpus), cache_on_device=True)
+    return cfg
+
+
+def p23_datasets(corpus: Path, cfg: dict) -> tuple:
+    """Phase 23's train and val splits: phase 9's corpus cut to P23_TRAIN /
+    P23_VAL clips."""
+    train = quiet(ICBHIDataset, corpus, "train", cfg, augment=True)
+    val = quiet(ICBHIDataset, corpus, "val", cfg)
+    train.data, val.data = train.data[:P23_TRAIN], val.data[:P23_VAL]
+    return train, val
+
+
+def train_epochs(trainer: Trainer) -> tuple[dict, list]:
+    """P23_EPOCHS epochs of train_epoch and validate, the scheduler stepped
+    on the val loss: the history and each epoch's (train, validate) ms."""
+    hist = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
+    times = []
+    for epoch in range(P23_EPOCHS):
+        t0 = time.perf_counter()
+        tl, ta = trainer.train_epoch(epoch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vl, va = trainer.validate(epoch)
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        trainer.scheduler.step(vl)
+        for k, v in zip(hist, (tl, vl, ta, va)):
+            hist[k].append(v)
+    return hist, times
+
+
 class HeldClips:
     """A dataset over clips already in memory, as the loaders read one."""
 
@@ -3883,7 +3941,8 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
     records of an eager step (kernels, copies, fills); the graphed step's
     and eval group's device ms (replays back to back); the step by CUDA
     events per step and fused. Returns row 1's launches ("inference",
-    "masked")."""
+    "masked"), and for phase 26 the fused run's history ("history") and
+    its train graph's nodes by kind ("train_nodes")."""
     import copy
 
     k16 = mel_kernels.log_mel_radix16dif_fused
@@ -3962,14 +4021,10 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
         check(margins.ok, f"SGD {what} params ({margins})")
 
     # (b) the Trainer on the cache: per step, and fused
-    cfg = load_config(str(REPO / "config.yaml"))
-    cfg["data"].update(dataset_path=str(corpus), cache_on_device=True)
+    cfg = p23_config(corpus)
 
     def datasets():
-        train = quiet(ICBHIDataset, corpus, "train", cfg, augment=True)
-        val = quiet(ICBHIDataset, corpus, "val", cfg)
-        train.data, val.data = train.data[:P23_TRAIN], val.data[:P23_VAL]
-        return train, val
+        return p23_datasets(corpus, cfg)
 
     runs = {}
     for spd in (1, 0):
@@ -3984,19 +4039,7 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
         check(isinstance(trainer.train_loader, DeviceCachedLoader)
               and trainer._use_multi_dispatch() == (spd != 1)
               and trainer._use_fused_eval() == (spd != 1), f"steps_per_dispatch {spd}'s path")
-        hist = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
-        times = []
-        for epoch in range(P23_EPOCHS):
-            t0 = time.perf_counter()
-            tl, ta = trainer.train_epoch(epoch)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            vl, va = trainer.validate(epoch)
-            torch.cuda.synchronize()
-            times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
-            trainer.scheduler.step(vl)
-            for k, v in zip(hist, (tl, vl, ta, va)):
-                hist[k].append(v)
+        hist, times = train_epochs(trainer)
         read_epilogue(f"phase 23 trainer at steps_per_dispatch {spd}")
         counts = (k16.launches, k16.launches_masked)
         check(counts[0] > 0 and counts[1] > 0 and all(
@@ -4111,7 +4154,8 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
           f"{graph_step_ms:.3f} ms; an eval group of {tuple(eval_graph.static[0].shape)[1:]} "
           f"batches x rows as a graph {graph_eval_ms:.3f} ms")
     print(f"phase 23: row 1 and the epilogue over the phase's main paths {launches}")
-    return launches
+    return launches | {"history": runs[0]["hist"],
+                       "train_nodes": node_kinds(list_graph_nodes(train_graph.graph))}
 
 
 def resample_tolerance(x: torch.Tensor, orig: int, new: int) -> float:
@@ -4472,6 +4516,346 @@ def phase25_orbax(dev, rng, card: str, tmp: Path, corpus: Path) -> dict[str, int
     print(f"phase 25: {time.perf_counter() - start:.1f} s")
     return launches
 
+
+
+# phase 26: the fused epoch on an NCCL group
+COLLECTIVES_A_STEP = 24  # 2 microbatches x (Σw + 5 BatchNorms x 2) + gradients + metrics
+
+
+def node_kinds(nodes: list[tuple[str, str | None]]) -> dict[str, int]:
+    """A graph's nodes by type, its NCCL kernels apart ("nccl")."""
+    kinds: dict[str, int] = {}
+    for kind, name in nodes:
+        key = "nccl" if kind == "kernel" and name and "nccl" in name.lower() else kind
+        kinds[key] = kinds.get(key, 0) + 1
+    return kinds
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the calls into torch.distributed's all_reduce and all_gather
+    (the sharded step's, `parallel/mesh.py` and `models/cnn.py`, look them
+    up at each call) while the block runs."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(dist, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def phase26_fused_ranks(dev, card: str, tmp: Path, corpus: Path, sgd: dict,
+                        p23: dict) -> dict[str, int]:
+    """The fused epoch over a process group on the card, the launch counts
+    zeroed before and read after each main-path run: (b) phase 8's lr-1
+    SGD step (config.yaml, 2 x 8 x 8 s, fp32, dropout 0) through
+    `train_many` on a world-size-1 NCCL group: the capture's eager warm-up
+    step against phase 8's step without a group on the card and the CPU by
+    its `step_floor`, the collectives counted in the warm-up and the
+    capture, then a replay against an eager NCCL step from the same state;
+    (a) `Trainer` at config.yaml (bf16, capturable Adam, augmentation and
+    dropout on, the cache on) on that group for three epochs on phase 23's
+    294 / 63 clips, at steps_per_dispatch 1 (per step on the cache) and 0
+    (fused): the fused history within rtol 1e-4 of the per-step one, and
+    within max(rtol 1e-4, twice how far phase 23's fused run moves from
+    initial weights 1e-6 off) of phase 23's fused run without a group (the
+    cross-rank BatchNorm rounds otherwise, and three epochs of Adam on bf16
+    carry that into the losses); the graphs' nodes (the NCCL kernels in the
+    train graph, none in the eval graph), captures, host calls a step, the
+    graphed step's device ms; (c) `train --multihost
+    --num-processes 1` at config.yaml with `data.cache_on_device: true`, one
+    epoch as a subprocess printing its counts: the cache line, no
+    "disabled" line, its best checkpoint served; (d) two NCCL ranks fused
+    against one, where two GPUs are visible. Returns row 1's launches
+    ("inference", "masked")."""
+    import copy
+
+    import yaml
+
+    k16 = mel_kernels.log_mel_radix16dif_fused
+    launches = {"inference": 0, "masked": 0}
+    start = time.perf_counter()
+    nccl = tuple(torch.cuda.nccl.version())
+    print(f"phase 26: NCCL {'.'.join(map(str, nccl))} (collectives under graph capture need "
+          f">= 2.9.6); torch {torch.__version__}")
+    check(nccl[:3] >= (2, 9, 6), "NCCL can be captured")
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = get_mesh(device=dev)
+        check(mesh.group is not None and mesh.world_size == 1 and mesh.hosts == 1
+              and mesh.device.type == "cuda", "a world-size-1 NCCL mesh on one machine")
+
+        # (b) phase 8's SGD step through train_many on the group: the warm-up
+        # step, then a replay of the captured step with its collectives
+        a, b = 2, 8
+        clips = sgd["wavs"].reshape(a * b, -1).numpy()
+        labels = sgd["labels"].reshape(-1).numpy()
+        loader = DeviceCachedLoader(HeldClips(clips, labels), b, device=dev)
+        cw = sgd["cw"].to(dev)
+
+        def sgd_model(state=None):
+            model = LightweightCNN(axis_name=mesh.group)
+            model.load_state_dict(sgd["init"] if state is None else state[0])
+            model.to(dev).set_dropout(0.0)
+            opt = build_optimizer("sgd", model.named_parameters(), 1e-4)
+            if state is not None:
+                opt.load_state_dict(copy.deepcopy(state[1]))
+            return model, opt
+
+        model, opt = sgd_model()
+        fns = make_step_fns(model, sgd["fe"], opt, accum_steps=a, mesh=mesh)
+        zero_counts()
+        steps = []  # (state before, metrics, params after)
+        for i in range(2):
+            before = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                      copy.deepcopy(opt.state_dict()))
+            with counted_collectives() as called:
+                m = fns.train_many(loader.cache, np.arange(a * b).reshape(1, a, b),
+                                   labels.reshape(1, a, b), cw, 1.0, 0, 0)
+            torch.cuda.synchronize()
+            steps.append((before, {k: float(v[0]) for k, v in m.items()}, param_arrays(model),
+                          dict(called)))
+        read_epilogue("phase 26 SGD steps")
+        graph = fns.train_many.graphs["train"]
+        kinds = node_kinds(list_graph_nodes(graph.graph))
+        print(f"phase 26: two lr-1 SGD steps through train_many on the NCCL group: collectives "
+              f"called {steps[0][3]} in the first (the warm-up step, then the capture), "
+              f"{steps[1][3]} in the second (a replay); captures "
+              f"{[kind for kind, _ in fns.train_many.captures]}, replays {graph.replays}; row-1 "
+              f"launches {k16.launches}; the graph's nodes by kind {json.dumps(kinds)}")
+        check(sum(steps[0][3].values()) == 2 * COLLECTIVES_A_STEP
+              and sum(steps[1][3].values()) == 0,
+              "the warm-up and the capture each called the step's collectives; a replay none")
+        check((k16.launches, k16.launches_masked) == (2, 0) and graph.replays == 1
+              and [kind for kind, _ in fns.train_many.captures] == ["train"],
+              "the SGD steps on the group: the warm-up step and a replay")
+        launches["inference"] += k16.launches
+        _, m, got, _ = steps[0]
+        vs_card = step_margins((got, m["grad_norm"]), sgd["card"], sgd["floor"])
+        vs_cpu = step_margins((got, m["grad_norm"]), sgd["cpu"], sgd["floor"])
+        loss_err = abs(m["loss"] - sgd["card_loss"]) / abs(sgd["card_loss"])
+        print(f"phase 26: the warm-up step on the group: loss {m['loss']:.6f} (rel {loss_err:.2e} "
+              f"from phase 8's step without a group, tol 1e-5); params worst |d| over phase 8's "
+              f"bound {vs_card.params:.3f} against the card's, {vs_cpu.params:.3f} against the "
+              f"CPU's; grad norm {vs_card.grad_norm:.3f} / {vs_cpu.grad_norm:.3f}")
+        check(loss_err <= 1e-5, "warm-up step loss on the group")
+        check(vs_card.ok and vs_cpu.ok, f"warm-up step params on the group ({vs_card}; {vs_cpu})")
+        before, m, got, _ = steps[1]
+        ref_model, ref_opt = sgd_model(before)
+        ref = make_step_fns(ref_model, sgd["fe"], ref_opt, accum_steps=a, mesh=mesh).train_step(
+            sgd["wavs"].to(dev), sgd["labels"].to(dev), cw, 1.0)
+        ref_loss = float(ref["loss"])
+        margins = step_margins((got, m["grad_norm"]),
+                               (param_arrays(ref_model), float(ref["grad_norm"])), sgd["floor"])
+        loss_err = abs(m["loss"] - ref_loss) / abs(ref_loss)
+        print(f"phase 26: the replay: loss {m['loss']:.6f} (rel {loss_err:.2e} from an eager NCCL "
+              f"step from the same state, tol 1e-5); params worst |d| over phase 8's bound "
+              f"{margins.params:.3f}, grad norm {margins.grad_norm:.3f}")
+        check(loss_err <= 1e-5, "replay loss on the group")
+        check(margins.ok, f"replay params on the group ({margins})")
+
+        # (a) the Trainer on the group, per step and fused on the cache
+        runs = {}
+        for spd in (1, 0):
+            cfg = p23_config(corpus)
+            cfg["training"].update(steps_per_dispatch=spd,
+                                   checkpoint_dir=str(tmp / f"p26_{spd}" / "ckpt"),
+                                   log_dir=str(tmp / f"p26_{spd}" / "runs"))
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer = quiet(Trainer, build_model(cfg, axis_name=mesh.group),
+                            *p23_datasets(corpus, cfg), cfg, mesh=mesh)
+            build_s = time.perf_counter() - t0
+            check(isinstance(trainer.train_loader, DeviceCachedLoader)
+                  and trainer._use_multi_dispatch() == trainer._use_fused_eval() == (spd != 1),
+                  f"the trainer on the group, steps_per_dispatch {spd}: the cache and its path")
+            hist, times = train_epochs(trainer)
+            read_epilogue(f"phase 26 trainer on the group at steps_per_dispatch {spd}")
+            counts = (k16.launches, k16.launches_masked)
+            check(counts[0] > 0 and counts[1] > 0 and all(
+                fn.launches + fn.launches_masked == 0 for name, fn in mel_kernels.WRAPPERS.items()
+                if name != "radix16dif_fused"), f"steps_per_dispatch {spd} ran row 1, both forms")
+            launches["inference"] += counts[0]
+            launches["masked"] += counts[1]
+            caps = trainer.steps.train_many.captures
+            check(sorted(kind for kind, _ in caps) == (["eval", "train"] if spd != 1 else []),
+                  f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
+            runs[spd] = dict(trainer=trainer, hist=hist)
+            print(f"phase 26: [{card}] Trainer at config.yaml on the world-size-1 NCCL group, "
+                  f"cache on, steps_per_dispatch {spd} ({'per step' if spd == 1 else 'fused'}), "
+                  f"{P23_EPOCHS} epochs of {len(trainer.train_dataset)} / "
+                  f"{len(trainer.val_dataset)} clips: train + validate ms by epoch "
+                  + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
+                  + f"; built in {build_s:.2f} s; captures (warm-up included) "
+                  + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+                  + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
+                  f"{counts[1]} masked (training)")
+        err = max(abs(x - y) / abs(y) for k in ("train_loss", "val_loss")
+                  for x, y in zip(runs[0]["hist"][k], runs[1]["hist"][k]))
+        print(f"phase 26: on the group, fused against per step: losses max rel {err:.2e} "
+              f"(tol 1e-4)")
+        check(err <= 1e-4, "the fused epoch on the group trains as the sharded per-step path")
+        hist = runs[0]["hist"]
+        trainer = runs[0]["trainer"]
+        train_graph = trainer.steps.train_many.graphs["train"]
+        eval_graph = trainer.steps.eval_many.graphs["eval"]
+        train_kinds = node_kinds(list_graph_nodes(train_graph.graph))
+        eval_kinds = node_kinds(list_graph_nodes(eval_graph.graph))
+        print(f"phase 26: the train graph's nodes by kind {json.dumps(train_kinds)} (without a "
+              f"group, phase 23: {json.dumps(p23['train_nodes'])}); NCCL kernels in one replay "
+              f"{train_kinds.get('nccl', 0)} ({COLLECTIVES_A_STEP} collectives a step at "
+              f"config.yaml); the eval graph's {json.dumps(eval_kinds)}")
+        check("nccl" not in eval_kinds, "the eval graph holds no collective")
+        kernels, found = radix8_nodes(train_graph.graph)
+        check(found == {stem: 1 for stem in RADIX8_STEMS}, "the train graph holds row 1 once")
+
+        tl_ = trainer.train_loader
+        idxs = tl_.epoch_index_batches()[:8].reshape(4, 2, 32)
+        lbls = tl_.labels_all[idxs]
+        lr = float(trainer.scheduler.lr)
+
+        def fused_steps():
+            return trainer.steps.train_many(tl_.cache, idxs, lbls, trainer.class_weights, lr,
+                                            9, 0)
+
+        fused_steps()
+        calls = host_calls(fused_steps, 4)
+        fused_ms = cuda_ms(fused_steps, iters=3, warmup=1) / 4
+        graph_step_ms = cuda_ms(train_graph.graph.replay, iters=10, warmup=2)
+        graph_eval_ms = cuda_ms(eval_graph.graph.replay, iters=10, warmup=2)
+        print(f"phase 26: [{card}] the fused step on the NCCL group at config.yaml (32 x 2 x 8 s, "
+              f"bf16, capturable adam, augmentation on): host calls a step "
+              f"{sum(calls.values()):.1f} {json.dumps({k: round(v, 2) for k, v in calls.items()})}; "
+              f"{fused_ms:.3f} ms a step by CUDA events back to back; the graphed step alone "
+              f"(replays back to back) {graph_step_ms:.3f} ms; the eval group as a graph "
+              f"{graph_eval_ms:.3f} ms; {kernels} kernel nodes in the train graph")
+    finally:
+        close_distributed()
+
+    # (a) against phase 23's fused run without a group. The cross-rank
+    # BatchNorm rounds otherwise than BatchNorm, and three epochs of Adam
+    # on bf16 activations carry rounding into the losses (a gradient near
+    # zero whose sign flips moves its weight by the whole rate), so the
+    # bar is how far rounding alone moves phase 23's run: the same run with
+    # its initial weights scaled by 1 + 1e-6 u (u uniform in [-1, 1], the
+    # step floor's seeds 0-7), twice the largest move at each epoch, and never
+    # under rtol 1e-4
+    cfg = p23_config(corpus)
+    moved = []
+    for seed in FLOOR_SEEDS:
+        cfg["training"].update(steps_per_dispatch=0,
+                               checkpoint_dir=str(tmp / f"p26_floor{seed}" / "ckpt"),
+                               log_dir=str(tmp / f"p26_floor{seed}" / "runs"))
+        trainer = quiet(Trainer, build_model(cfg), *p23_datasets(corpus, cfg), cfg,
+                        device="cuda")
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for prm in trainer.model.parameters():
+                prm.mul_((1.0 + 1e-6 * (2.0 * torch.rand(prm.shape, generator=g) - 1.0))
+                         .to(prm.device))
+        moved.append(train_epochs(trainer)[0])
+    worst, rel_group, rel_moved = 0.0, 0.0, 0.0
+    for k in ("train_loss", "val_loss"):
+        for e, want in enumerate(p23["history"][k]):
+            floor = max(abs(m[k][e] - want) for m in moved)
+            worst = max(worst, abs(hist[k][e] - want) / max(1e-4 * abs(want), 2.0 * floor))
+            rel_group = max(rel_group, abs(hist[k][e] - want) / abs(want))
+            rel_moved = max(rel_moved, floor / abs(want))
+    print(f"phase 26: against phase 23's fused run without a group "
+          f"{json.dumps(p23['history'])}: the losses on the group max rel {rel_group:.2e}; "
+          f"phase 23's run from weights 1e-6 off (seeds 0-7) moved by max rel {rel_moved:.2e}; "
+          f"worst |d| over max(rtol 1e-4, twice that move) {worst:.3f}; histories of the "
+          f"moved runs {json.dumps(moved)}")
+    check(worst <= 1.0, "the fused run on the group within rounding of the run without one")
+
+    # (c) train --multihost --num-processes 1 with the cache, served
+    work = tmp / "p26_entry"
+    work.mkdir()
+    entry_cfg = load_config(str(REPO / "config.yaml"))
+    entry_cfg["data"]["cache_on_device"] = True
+    (work / "cache.yaml").write_text(yaml.safe_dump(entry_cfg))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", ENTRY_COUNTED, "audio_classification_icbhi_tpu_torch.train",
+         "--config", "cache.yaml", "--data-path", str(corpus), "--epochs", "1", "--no-plots",
+         "--multihost", "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+         "--process-id", "0"], cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"--multihost train with the cache exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    cache_line = next((line for line in out.stdout.splitlines()
+                       if line.startswith("Device cache:")), None)
+    check("Distributed: process 0" in out.stdout and cache_line is not None
+          and "disabled" not in out.stdout,
+          "the --multihost run kept the device cache on its process group")
+    counted = json.loads(out.stdout.strip().splitlines()[-1])
+    row1 = counted["launches"]["radix16dif_fused"]
+    others = sum(sum(v) for k, v in counted["launches"].items() if k != "radix16dif_fused")
+    check(row1[0] > 0 and row1[1] > 0 and others == 0, "the cached epoch ran row 1, both forms")
+    check(counted["epilogue"] == sum(row1), "the epilogue launched with each log-mel call")
+    launches["inference"] += row1[0]
+    launches["masked"] += row1[1]
+    EPILOGUE_MAIN_PATH["launches"] += counted["epilogue"]
+    best = work / "checkpoints" / "best_model.ckpt"
+    engine = ClassifierEngine(best, device="cuda")
+    clip, _ = ICBHIDataset(corpus, "test", engine.config)[0]
+    result = engine.classify_wave(clip)
+    probs = np.array(list(result["probabilities"].values()))
+    print(f"phase 26: [{card}] train --multihost --num-processes 1 at config.yaml with "
+          f"cache_on_device, 1 epoch (subprocess, start-up included): {wall:.1f} s; "
+          f"\"{cache_line}\"; history {json.dumps(counted['history'])}; row 1 launches "
+          f"{row1[0]} (validation), {row1[1]} masked (training, replays counted); its best "
+          f"checkpoint served: {result['predicted_class']} {result['confidence']:.4f}")
+    check(all(math.isfinite(v) for vals in counted["history"].values() for v in vals),
+          "finite history")
+    check(bool(np.isfinite(probs).all()) and abs(probs.sum() - 1.0) < 1e-3,
+          "the cached run's checkpoint served")
+
+    # (d) two NCCL ranks fused against one
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        cfg2 = load_config(str(REPO / "config.yaml"))
+        cfg2["data"].update(augmentation=False, cache_on_device=True)
+        cfg2["model"].update(architecture="resnet", dropout=0.0)  # no draw depends on the rank
+        cfg2["training"].update(mixed_precision=False, optimizer="sgd", learning_rate=0.01,
+                                steps_per_dispatch=0)
+        runs = {}
+        for n in (2, 1):
+            cfg2["training"].update(checkpoint_dir=str(tmp / f"p26r{n}" / "ckpt"),
+                                    log_dir=str(tmp / f"p26r{n}" / "runs"))
+            path = tmp / f"p26_ranks{n}.yaml"
+            path.write_text(yaml.safe_dump(cfg2))
+            runs[n] = quiet(train_entry.main, ["--config", str(path), "--data-path", str(corpus),
+                                               "--epochs", "1", "--no-plots", "--num-devices",
+                                               str(n)])
+        err = max(abs(x - y) / abs(y) for k in ("train_loss", "val_loss")
+                  for x, y in zip(runs[2][k], runs[1][k]))
+        print(f"phase 26: [{card}] two NCCL ranks fused against one, ResNet fp32 without "
+              f"dropout, cache on, one epoch: losses {runs[2]['train_loss']} / "
+              f"{runs[1]['train_loss']}, max rel {err:.2e} (tol 2e-3)")
+        check(err <= 2e-3, "two NCCL ranks fused against one")
+    else:
+        print(f"phase 26: two NCCL ranks fused against one: not run, {n_gpu} CUDA device "
+              f"visible (NCCL takes one GPU a rank); 2 and 4 ranks of the fused epoch are held "
+              f"on the CPU over gloo (tests/test_torch_fused_ranks.py)")
+    print(f"phase 26: row 1 over the phase's main paths {launches}; "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":

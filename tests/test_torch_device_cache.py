@@ -14,8 +14,9 @@ against the JAX package's, on the CPU.
   steps_per_dispatch but 1 read as the whole epoch a call, fused
   validation with G-group padding against per-batch validation
   (`test_fused_validation_matches_per_batch`), the ICBHI trainer
-  and the segmented config through their entry points, and the cache
-  turned off under a gloo group of 2 ranks.
+  and the segmented config through their entry points, and the cache's
+  rule over ranks: on over a gloo group of 2 ranks of one machine, off on
+  a mesh of 2 hosts.
 
 On the CPU the port's fused functions run eagerly (the CUDA graphs are the
 card's: `chip_smoke.py` phase 23).
@@ -60,6 +61,7 @@ from audio_classification_icbhi_tpu_torch.models.weights import (
 )
 from audio_classification_icbhi_tpu_torch.ops import mel as port_mel
 from audio_classification_icbhi_tpu_torch.parallel import data_parallel as port_dp
+from audio_classification_icbhi_tpu_torch.parallel.mesh import Mesh
 from audio_classification_icbhi_tpu_torch.step_floor import step_floor, step_margins
 from audio_classification_icbhi_tpu_torch.training.optimizers import build_optimizer
 from audio_classification_icbhi_tpu_torch.training.trainer import Trainer
@@ -532,18 +534,42 @@ def cache_rank(rank, n, port, payload, out):
                     ICBHISegmentedDataset(p["root"], "val", config), config, mesh=mesh)
     torch.save({"loaders": [type(t.train_loader).__name__, type(t.val_loader).__name__],
                 "cache": t.cache_on_device, "fused": t._use_multi_dispatch(),
-                "printed": text.getvalue()}, Path(out) / f"rank{rank}.pt")
+                "hosts": mesh.hosts, "printed": text.getvalue()}, Path(out) / f"rank{rank}.pt")
 
 
-def test_cache_off_under_a_process_group(seg_data, tmp_path):
-    """Over a gloo group of 2 ranks the trainer turns the cache off with the
+CACHE_OFF = ("cache_on_device: disabled under multi-host training (the fused dispatch paths "
+             "are single-controller); using the per-step host loader.")
+
+
+@pytest.mark.parametrize("hosts", [1, 2])
+def test_cache_rule_over_ranks(seg_data, tmp_path, hosts):
+    """The JAX trainer's rule, with a port rank for each device: the cache
+    is off only where the group spans several machines (`Mesh.hosts`, the
+    counterpart of `jax.process_count()`). Over a gloo group of 2 ranks on
+    this machine (hosts 1) both loaders are the device cache and the epoch
+    is fused; on a mesh of 2 hosts the trainer turns the cache off with the
     JAX trainer's message and uses the per-step host loaders."""
-    torch.save({"config": tiny_config(tmp_path, "g"), "root": str(seg_data)},
-               tmp_path / "payload.pt")
-    run_ranks(2, "test_torch_device_cache:cache_rank", tmp_path / "payload.pt", tmp_path)
-    for r in range(2):
-        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
-        assert got["loaders"] == ["BatchLoader", "BatchLoader"]
-        assert not got["cache"] and not got["fused"]
-        assert ("cache_on_device: disabled under multi-host training (the fused dispatch "
-                "paths are single-controller); using the per-step host loader.") in got["printed"]
+    config = tiny_config(tmp_path, "g")
+    if hosts == 1:
+        torch.save({"config": config, "root": str(seg_data)}, tmp_path / "payload.pt")
+        run_ranks(2, "test_torch_device_cache:cache_rank", tmp_path / "payload.pt", tmp_path)
+        got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    else:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            t = Trainer(build_model(config), ICBHISegmentedDataset(seg_data, "train", config),
+                        ICBHISegmentedDataset(seg_data, "val", config), config,
+                        mesh=Mesh(torch.device("cpu"), hosts=2))
+        got = [{"loaders": [type(t.train_loader).__name__, type(t.val_loader).__name__],
+                "cache": t.cache_on_device, "fused": t._use_multi_dispatch(), "hosts": 2,
+                "printed": text.getvalue()}]
+    for g in got:
+        assert g["hosts"] == hosts
+        if hosts == 1:
+            assert g["loaders"] == ["DeviceCachedLoader", "DeviceCachedLoader"]
+            assert g["cache"] and g["fused"]
+            assert "Device cache:" in g["printed"] and CACHE_OFF not in g["printed"]
+        else:
+            assert g["loaders"] == ["BatchLoader", "BatchLoader"]
+            assert not g["cache"] and not g["fused"]
+            assert CACHE_OFF in g["printed"]
