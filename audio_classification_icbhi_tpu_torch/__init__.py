@@ -30,19 +30,26 @@ Nothing heavy is imported here; the exports load on first access.
 
 __version__ = "0.1.0"
 
-_EXPORTS = {
-    "load_config": "audio_classification_icbhi_tpu_torch.utils.config",
-    "MelFrontend": "audio_classification_icbhi_tpu_torch.ops.mel",
-    "build_model": "audio_classification_icbhi_tpu_torch.models.registry",
-    "ClassifierEngine": "audio_classification_icbhi_tpu_torch.inference",
-}
 
-__all__ = list(_EXPORTS)
+def lazy_exports(package: str, modules: dict[str, tuple[str, ...]]):
+    """(__getattr__, __all__) for `package`, whose names are exported from
+    its submodules, {submodule: names}: a name's submodule is imported on
+    the name's first access, so importing the package imports none of them."""
+    owner = {name: f"{package}.{module}" for module, names in modules.items() for name in names}
+
+    def __getattr__(name):
+        if name in owner:
+            import importlib
+
+            return getattr(importlib.import_module(owner[name]), name)
+        raise AttributeError(f"module {package!r} has no attribute {name!r}")
+
+    return __getattr__, list(owner)
 
 
-def __getattr__(name):
-    if name in _EXPORTS:
-        import importlib
-
-        return getattr(importlib.import_module(_EXPORTS[name]), name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__getattr__, __all__ = lazy_exports(__name__, {
+    "utils.config": ("load_config", "set_seed"),
+    "ops.mel": ("MelFrontend",),
+    "models.registry": ("build_model",),
+    "inference": ("ClassifierEngine",),
+})

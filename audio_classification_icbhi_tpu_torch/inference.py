@@ -4,11 +4,12 @@ Port of `audio_classification_icbhi_tpu/inference.py:30-220`. The model is
 rebuilt from the config embedded in the checkpoint, so consumers never need
 the original YAML. One wav -> probabilities path serves single clips and
 batches: the log-mel front end (the Hopper kernel on the card), then the
-checkpoint's classifier (LightweightCNN or CompactResNet18) in eval mode and
-a softmax. With `ICBHI_FUSED_CNN=1` on the card a LightweightCNN runs
-through the fused conv-block kernels (`models/fused_infer.py`), as the JAX
-engine takes its fused Pallas CNN; a CompactResNet18 runs its own forward
-there too, as in the JAX engine.
+checkpoint's classifier (LightweightCNN, CompactResNet18 or a registered
+architecture, built by `build_model`) in eval mode and a softmax. With
+`ICBHI_FUSED_CNN=1` on the card a LightweightCNN runs through the fused
+conv-block kernels (`models/fused_infer.py`), as the JAX engine takes its
+fused Pallas CNN; any other model runs its own forward there, as in the
+JAX engine.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ class ClassifierEngine:
         self.device = resolve_device(device)
         self.model = build_model(self.config)
         self.model.load_state_dict(state_dict_from_flax(
-            {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats", {})}))
+            {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats", {})},
+            self.config["model"]["architecture"]))
         self.model.to(self.device).eval()
         self.epoch = int(ckpt.get("epoch", -1))
         self.val_loss = float(ckpt.get("val_loss", float("nan")))

@@ -1,5 +1,6 @@
-"""Classifiers as torch nn.Modules (LightweightCNN and CompactResNet18), and
-the opt-in fused inference forward of LightweightCNN."""
+"""Classifiers as torch nn.Modules (LightweightCNN and CompactResNet18), the
+registry that builds them and a user's registered architectures, and the
+opt-in fused inference forward of LightweightCNN."""
 
 from audio_classification_icbhi_tpu_torch.models.cnn import (  # noqa: F401
     ConvBlock,
@@ -13,4 +14,8 @@ from audio_classification_icbhi_tpu_torch.models.fused_infer import (  # noqa: F
     fused_kernels_available,
     make_fused_apply,
 )
-from audio_classification_icbhi_tpu_torch.models.registry import build_model  # noqa: F401
+from audio_classification_icbhi_tpu_torch.models.registry import (  # noqa: F401
+    available_models,
+    build_model,
+    register_model,
+)

@@ -23,6 +23,14 @@ package's `models/torch_import.convert_lightweight_cnn` and
 The optimizer state crosses too (`opt_state_from_optax`,
 `optax_from_opt_state`), by parameter name, so a checkpoint written by
 either package's trainer resumes in the other.
+
+A model registered with `models/registry.register_model` crosses by the
+table its class's `weight_table()` gives, or, without one, under its torch
+names split at the dots (`resnet.fc.1.weight` -> params["resnet"]["fc"]["1"]
+["weight"]; the whole state_dict, its buffers too, in the params tree).
+Each function takes the config's `architecture` for that; a tree that
+matches neither builtin, of an architecture without a registered table,
+raises.
 """
 
 from __future__ import annotations
@@ -80,23 +88,74 @@ def _resnet_table(blocks) -> list[tuple[str, tuple, str]]:
     return rows + [("resnet.fc.1", ("Dense_0",), "linear"), ("resnet.fc.4", ("Dense_1",), "linear")]
 
 
-def _table_from_flax(params: dict) -> list[tuple[str, tuple, str]]:
+def _table_from_flax(params: dict) -> list[tuple[str, tuple, str]] | None:
     if "stem_conv" not in params:
-        return _cnn_table()
+        return _cnn_table() if "ConvBlock_0" in params else None
     found = (re.fullmatch(r"layer(\d+)_block(\d+)", k) for k in params)
     blocks = sorted((int(m[1]), int(m[2])) for m in found if m)
     return _resnet_table([(s, b, "downsample_conv" in params[f"layer{s}_block{b}"])
                           for s, b in blocks])
 
 
-def _table_from_torch(names) -> list[tuple[str, tuple, str]]:
+def _table_from_torch(names) -> list[tuple[str, tuple, str]] | None:
     names = set(names)
     if "resnet.conv1.weight" not in names:
-        return _cnn_table()
+        return _cnn_table() if "conv1.conv.weight" in names else None
     found = (re.fullmatch(r"resnet\.layer(\d+)\.(\d+)\.conv1\.weight", k) for k in names)
     blocks = sorted((int(m[1]), int(m[2])) for m in found if m)
     return _resnet_table([(s, b, f"resnet.layer{s}.{b}.downsample.0.weight" in names)
                           for s, b in blocks])
+
+
+def _registered(architecture: str | None):
+    """The class registered under `architecture` when it is not a builtin,
+    else None."""
+    from audio_classification_icbhi_tpu_torch.models.cnn import LightweightCNN
+    from audio_classification_icbhi_tpu_torch.models.registry import _REGISTRY
+    from audio_classification_icbhi_tpu_torch.models.resnet import CompactResNet
+
+    cls = _REGISTRY.get((architecture or "").lower())
+    return None if cls in (None, LightweightCNN, CompactResNet) else cls
+
+
+def _table(architecture: str | None, tree: dict, from_flax: bool):
+    """The name table of `tree` (flax params, or torch names): a registered
+    architecture's own, or None without one (its torch names cross as
+    they are); a builtin's, read off the keys, for a builtin or no
+    architecture."""
+    cls = _registered(architecture)
+    if cls is not None:
+        table = getattr(cls, "weight_table", None)
+        return None if table is None else list(table())
+    rows = _table_from_flax(tree) if from_flax else _table_from_torch(tree)
+    if rows is None:
+        raise ValueError(f"architecture {architecture!r}: the weights match neither builtin "
+                         "(no stem_conv / ConvBlock_0, resnet.conv1 / conv1.conv) and no "
+                         "registered model's table")
+    return rows
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A nested dict -> {dotted path: tensor}, dtypes kept."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v.clone() if isinstance(v, torch.Tensor) else torch.tensor(np.array(v))
+    return out
+
+
+def _nest(named: dict) -> dict:
+    """{dotted name: tensor} -> the nested dict of numpy copies (floats as
+    float32, other dtypes kept)."""
+    tree: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        t = torch.as_tensor(t).detach().cpu()
+        _node(tree, tuple(path), create=True)[leaf] = np.array(
+            (t.float() if t.is_floating_point() else t).numpy())
+    return tree
 
 
 # layout -> (the axes from flax's order to torch's, and back)
@@ -118,35 +177,45 @@ def _node(tree: dict, path: tuple, create: bool = False) -> dict:
     return tree
 
 
-def params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+def params_from_flax(params: dict, architecture: str | None = None) -> dict[str, torch.Tensor]:
     """flax "params" tree (or an optimizer moment of the same shape) ->
     {torch parameter name: tensor} in torch layout, in the model's
     `named_parameters()` order."""
+    table = _table(architecture, params, from_flax=True)
+    if table is None:
+        return _flatten(params)
     out: dict[str, torch.Tensor] = {}
-    for t, path, kind in _table_from_flax(params):
+    for t, path, kind in table:
         node = _node(params, path)
         for tl, fl, layout in _PARAM_LEAVES[kind]:
             out[f"{t}.{tl}"] = _t(_to_torch(_np(node[fl]), layout))
     return out
 
 
-def flax_from_params(named: dict) -> dict:
+def flax_from_params(named: dict, architecture: str | None = None) -> dict:
     """{torch parameter name: tensor} in torch layout (a state_dict will
     do) -> flax "params" tree with numpy leaves (the inverse of
     params_from_flax)."""
+    table = _table(architecture, named, from_flax=False)
+    if table is None:
+        return _nest(named)
     params: dict = {}
-    for t, path, kind in _table_from_torch(named):
+    for t, path, kind in table:
         node = _node(params, path, create=True)
         for tl, fl, layout in _PARAM_LEAVES[kind]:
             node[fl] = _to_flax(_np(named[f"{t}.{tl}"]), layout)
     return params
 
 
-def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: dict,
+                         architecture: str | None = None) -> dict[str, torch.Tensor]:
     """flax variables (numpy or array leaves) -> the port's state_dict."""
-    sd = params_from_flax(variables["params"])
+    table = _table(architecture, variables["params"], from_flax=True)
+    if table is None:
+        return _flatten(variables["params"]) | _flatten(variables.get("batch_stats", {}))
+    sd = params_from_flax(variables["params"], architecture)
     stats = variables.get("batch_stats", {})
-    for t, path, kind in _table_from_flax(variables["params"]):
+    for t, path, kind in table:
         if kind == "bn":
             node = _node(stats, path)
             for tl, fl in _STAT_LEAVES:
@@ -155,15 +224,18 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def flax_from_state_dict(sd: dict) -> dict:
+def flax_from_state_dict(sd: dict, architecture: str | None = None) -> dict:
     """The port's state_dict -> flax variables with numpy leaves."""
+    table = _table(architecture, sd, from_flax=False)
+    if table is None:
+        return {"params": _nest(sd), "batch_stats": {}}
     batch_stats: dict = {}
-    for t, path, kind in _table_from_torch(sd):
+    for t, path, kind in table:
         if kind == "bn":
             node = _node(batch_stats, path, create=True)
             for tl, fl in _STAT_LEAVES:
                 node[fl] = _np(sd[f"{t}.{tl}"])
-    return {"params": flax_from_params(sd), "batch_stats": batch_stats}
+    return {"params": flax_from_params(sd, architecture), "batch_stats": batch_stats}
 
 
 # --- optimizer state ---------------------------------------------------------
@@ -193,7 +265,8 @@ def _check_names(moment: dict, names: list[str]) -> None:
                          f"extra {extra}")
 
 
-def opt_state_from_optax(opt_state: dict, params, name: str) -> dict[int, dict]:
+def opt_state_from_optax(opt_state: dict, params, name: str,
+                         architecture: str | None = None) -> dict[int, dict]:
     """optax chain state in flax state-dict form -> the "state" part of a
     torch optimizer's state_dict, keyed by the position of each parameter
     in `params` (model.named_parameters(), the optimizer's order), matched
@@ -205,16 +278,17 @@ def opt_state_from_optax(opt_state: dict, params, name: str) -> dict[int, dict]:
         count = int(np.asarray(inner["count"]))
         if count == 0:
             return {}
-        mu, nu = params_from_flax(inner["mu"]), params_from_flax(inner["nu"])
+        mu, nu = (params_from_flax(inner[k], architecture) for k in ("mu", "nu"))
         _check_names(mu, names)
         return {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
                 for i, n in enumerate(names)}
-    trace = params_from_flax(inner["trace"])
+    trace = params_from_flax(inner["trace"], architecture)
     _check_names(trace, names)
     return {i: {"momentum_buffer": trace[n]} for i, n in enumerate(names)}
 
 
-def optax_from_opt_state(optimizer: torch.optim.Optimizer, name: str) -> dict:
+def optax_from_opt_state(optimizer: torch.optim.Optimizer, name: str,
+                         architecture: str | None = None) -> dict:
     """A torch optimizer over a classifier's parameters -> the optax chain
     state of the same optimizer in flax state-dict form, numpy leaves.
     The names are the optimizer's own when it was built over
@@ -232,7 +306,7 @@ def optax_from_opt_state(optimizer: torch.optim.Optimizer, name: str) -> dict:
 
     def moment(key):
         return flax_from_params({n: st[key] if key in st else torch.zeros_like(p)
-                                 for n, p, st in zip(names, tensors, states)})
+                                 for n, p, st in zip(names, tensors, states)}, architecture)
 
     if (name or "adam").lower() in ("adam", "adamw"):
         step = states[0].get("step", 0)

@@ -12,7 +12,9 @@ applies and get the JAX outputs back. Semantics per example, as in the JAX
 package: noise then a circular time shift, each gated at 0.5; SpecAugment's
 width ~ U(0, param) and start ~ U(0, size − width) drawn as floats, with both
 bounds truncated (mask [floor(start), floor(start + width))), frequency mask
-before time mask.
+before time mask. `freq_mask` and `time_mask` are the JAX package's
+single masks (`augment.py:55-89` there: one mask over the whole tensor),
+split the same way into `draw_mask` and `mask_along_axis`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,13 @@ class SpecDraws(NamedTuple):
     f_start: torch.Tensor
     t_width: torch.Tensor
     t_start: torch.Tensor
+
+
+class MaskDraw(NamedTuple):
+    """One SpecAugment mask's float draws, each 0-d."""
+
+    width: torch.Tensor
+    start: torch.Tensor
 
 
 class AugmentDraws(NamedTuple):
@@ -71,6 +80,15 @@ def draw_spectrogram(generator: torch.Generator, batch: int, n_mels: int, num_fr
     t_width = _uniform(generator, batch, 0.0, float(time_mask_param), device)
     t_start = (float(num_frames) - t_width) * torch.rand(batch, generator=generator, device=device)
     return SpecDraws(f_width, f_start, t_width, t_start)
+
+
+def draw_mask(generator: torch.Generator, size: int, mask_param: int,
+              device=None) -> MaskDraw:
+    """The draws of one mask over an axis of `size` cells, in the JAX order:
+    width ~ U(0, mask_param), then start ~ U(0, size − width)."""
+    width = _uniform(generator, 1, 0.0, float(mask_param), device)[0]
+    start = (float(size) - width) * torch.rand((), generator=generator, device=device)
+    return MaskDraw(width, start)
 
 
 def draw_augment(generator: torch.Generator, batch: int, length: int, n_mels: int,
@@ -147,3 +165,34 @@ def mask_from_bounds(mel_spec: torch.Tensor, bounds: torch.Tensor) -> torch.Tens
     masked = f_in[:, :, None] | t_in[:, None, :]
     return torch.where(masked, torch.zeros((), dtype=mel_spec.dtype, device=mel_spec.device),
                        mel_spec)
+
+
+def mask_along_axis(spec: torch.Tensor, draw: MaskDraw, axis: int) -> torch.Tensor:
+    """spec (..., n_mels, T) with the cells [floor(start), floor(start +
+    width)) of `axis` (-2, the mels, or -1, the frames) zeroed in every
+    leading index: torchaudio's `mask_along_axis` truncation, through
+    `mask_from_bounds`."""
+    if axis not in (-2, -1):
+        raise ValueError(f"axis must be -2 (mels) or -1 (frames), got {axis}")
+    start = torch.floor(draw.start)
+    band = [start, torch.floor(draw.start + draw.width) - start]
+    zero = [torch.zeros_like(start)] * 2
+    flat = spec.reshape((-1,) + tuple(spec.shape[-2:]))
+    bounds = torch.stack(band + zero if axis == -2 else zero + band).expand(len(flat), 4)
+    return mask_from_bounds(flat, bounds).reshape(spec.shape)
+
+
+def freq_mask(generator: torch.Generator, mel_spec: torch.Tensor,
+              mask_param: int = 15) -> torch.Tensor:
+    """SpecAugment's frequency mask over the mel axis (-2), one for the whole
+    tensor, drawn from `generator` (the reference's T.FrequencyMasking(15))."""
+    draw = draw_mask(generator, mel_spec.shape[-2], mask_param, mel_spec.device)
+    return mask_along_axis(mel_spec, draw, -2)
+
+
+def time_mask(generator: torch.Generator, mel_spec: torch.Tensor,
+              mask_param: int = 35) -> torch.Tensor:
+    """SpecAugment's time mask over the frame axis (-1), one for the whole
+    tensor, drawn from `generator` (the reference's T.TimeMasking(35))."""
+    draw = draw_mask(generator, mel_spec.shape[-1], mask_param, mel_spec.device)
+    return mask_along_axis(mel_spec, draw, -1)

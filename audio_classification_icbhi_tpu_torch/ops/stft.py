@@ -1,6 +1,6 @@
 """STFT building blocks on torch tensors.
 
-Port of `audio_classification_icbhi_tpu/ops/stft.py:27-119`. Semantics match
+Port of `audio_classification_icbhi_tpu/ops/stft.py:27-200`. Semantics match
 torch.stft under torchaudio MelSpectrogram defaults: center=True with
 reflect padding, periodic Hann window, onesided bins n_fft//2+1, frame
 count 1 + len//hop.
@@ -93,3 +93,15 @@ def stft_power(x: torch.Tensor, n_fft: int, hop_length: int, *,
     re = frames @ c
     im = frames @ s
     return re * re + im * im
+
+
+def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int, power: float = 2.0,
+                **kw) -> torch.Tensor:
+    """Magnitude (power=1) or power (power=2) spectrogram, (..., n_fft//2+1,
+    T) as torchaudio and the JAX package's `ops/stft.spectrogram` lay it out:
+    power 2 is `stft_power` (transposed), any other power
+    sqrt(max(|STFT|², 0)) ** power. `kw` goes to `stft_power`."""
+    p = stft_power(x, n_fft, hop_length, **kw).transpose(-1, -2)
+    if power == 2.0:
+        return p
+    return torch.sqrt(torch.clamp(p, min=0.0)) ** power

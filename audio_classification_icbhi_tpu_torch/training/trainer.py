@@ -578,12 +578,13 @@ class Trainer:
     def _checkpoint_payload(self, epoch: int, val_loss: float, extra: dict) -> dict:
         """The JAX trainer's payload (`trainer.py:816-839`), with flax-form
         params, batch_stats and optax-form opt_state."""
-        variables = flax_from_state_dict(self.model.state_dict())
+        arch = self.config["model"]["architecture"]
+        variables = flax_from_state_dict(self.model.state_dict(), arch)
         return {
             "epoch": epoch,
             "params": variables["params"],
             "batch_stats": variables["batch_stats"],
-            "opt_state": optax_from_opt_state(self.optimizer, self.optimizer_name),
+            "opt_state": optax_from_opt_state(self.optimizer, self.optimizer_name, arch),
             "val_loss": float(val_loss),
             "config": self.config,
             "class_weights": self.class_weights.cpu().numpy(),
@@ -635,10 +636,12 @@ class Trainer:
         self.wait_for_checkpoints()  # a queued write may be the file we read
         barrier(self.mesh)  # ... and rank 0's, for every rank
         ckpt = load_checkpoint(path)
-        sd = state_dict_from_flax({"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]})
+        arch = self.config["model"]["architecture"]
+        sd = state_dict_from_flax({"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]},
+                                  arch)
         self.model.load_state_dict(sd)
         state = opt_state_from_optax(ckpt["opt_state"], list(self.model.named_parameters()),
-                                     self.optimizer_name)
+                                     self.optimizer_name, arch)
         self.optimizer.load_state_dict({"state": state,
                                         "param_groups": self.optimizer.state_dict()["param_groups"]})
         if self.mesh is not None:

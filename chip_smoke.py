@@ -242,6 +242,23 @@ toolkit. Phases:
    line), its best checkpoint served; two NCCL ranks fused against one
    where two GPUs are visible (else it prints that this part did not
    run). Its row-1 launches add to the kernels line.
+27. CompactResNet18 and the segmented config on the fused epoch: phase
+   20's fp32 lr-1 SGD step of the full ResNet through `train_many`, the
+   capture's eager warm-up step against phase 20's eager steps on the card
+   and the CPU by its bound, then a replay against an eager step from the
+   same state; `Trainer` at config.yaml with `architecture: resnet` (bf16,
+   capturable Adam, augmentation and the head's dropouts on, the cache on)
+   for 3 epochs on phase 23's 294 / 63 clips at steps_per_dispatch 1 and 0,
+   the fused history held to the per-step one (rtol 1e-4, else max(rtol
+   1e-4, twice how far the per-step run moves from initial weights 1e-6
+   off, seeds 0-7)), the eval graph against an eager forward of its 128
+   rows (rtol 1e-5) and beside the per-step run's 32-row forwards, the
+   graphs' nodes by kind, replays and memory pools, the captures' ms, host
+   calls a step, the graphed step's and eval group's device ms and the
+   steady epochs' ms; `train_segmented` and `train_icbhi` at
+   config_segmented.yaml with the cache on at steps_per_dispatch 1 and 0 for
+   3 epochs on phase 21's segmented corpus (their graphs' replays counted),
+   the histories held alike. Its row-1 launches add to the kernels line.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -252,6 +269,12 @@ result. The line before the last lists the kernels as JSON; the last line is
 times the mixed-radix block path and the epilogue alone of an earlier
 checkout unpacked in DIR beside this one's instead (`compare_parent`,
 `mel_times`), and runs no phase.
+
+    python3 chip_smoke.py --phase27
+
+builds the kernels and runs phase 27 alone, on phase 9's and phase 21's
+corpora and phase 20's ResNet SGD step (`phase27_alone`; about two minutes
+on one H100).
 """
 
 from __future__ import annotations
@@ -259,6 +282,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import importlib
 import io
 import json
 import math
@@ -320,7 +344,6 @@ from audio_classification_icbhi_tpu_torch.ops import conv_kernels as ck
 from audio_classification_icbhi_tpu_torch.ops import augment as aug
 from audio_classification_icbhi_tpu_torch.ops.golden import golden_mel, parity_battery
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, mel_filterbank
-from audio_classification_icbhi_tpu_torch.ops import resample as resample_mod
 from audio_classification_icbhi_tpu_torch.ops.resample import _resample_kernel, resample
 from audio_classification_icbhi_tpu_torch.ops.time_stretch import (
     phase_bound,
@@ -330,6 +353,7 @@ from audio_classification_icbhi_tpu_torch.ops.time_stretch import (
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     features_from_wavs,
     make_step_fns,
+    weighted_cross_entropy,
 )
 from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     all_reduce_sum,
@@ -338,7 +362,7 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     get_mesh,
     init_distributed,
 )
-from audio_classification_icbhi_tpu_torch.parallel.step_graph import launch_counters
+from audio_classification_icbhi_tpu_torch.parallel.step_graph import GraphedStep, launch_counters
 from audio_classification_icbhi_tpu_torch.step_floor import (
     FLOOR_SEEDS,
     param_arrays,
@@ -358,6 +382,9 @@ from audio_classification_icbhi_tpu_torch.utils.icbhi_metrics import (
     calculate_detailed_confusion_metrics,
     calculate_icbhi_score,
 )
+
+# the module: `ops.resample` is its function, as in the JAX package
+resample_mod = importlib.import_module("audio_classification_icbhi_tpu_torch.ops.resample")
 
 REPO = Path(__file__).resolve().parent
 SR, N_FFT, HOP, N_MELS = 16000, 2048, 512, 128
@@ -746,6 +773,7 @@ def main() -> int:
         host = phase24_host_and_reports(dev, rng, card, Path(tmp), corpus)
         orbax = phase25_orbax(dev, rng, card, Path(tmp), corpus)
         ranks = phase26_fused_ranks(dev, card, Path(tmp), corpus, sgd_step, fused)
+        resnet_fused = phase27_resnet_fused(dev, card, Path(tmp), corpus, resnet["sgd"])
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -756,9 +784,10 @@ def main() -> int:
         numbers["launches"] = sum(conv_launches[k] for k in CONV_ROWS[name][2])
     serving["launches"] += (resnet["inference"] + segmented["inference"] + parallel["inference"]
                             + fused["inference"] + host["inference"] + orbax["inference"]
-                            + ranks["inference"])
+                            + ranks["inference"] + resnet_fused["inference"])
     training.update(launches=masked_launches + resnet["masked"] + segmented["masked"]
-                    + parallel["masked"] + fused["masked"] + orbax["masked"] + ranks["masked"],
+                    + parallel["masked"] + fused["masked"] + orbax["masked"] + ranks["masked"]
+                    + resnet_fused["masked"],
                     max_abs_err=masked_err)
     r8.update(launches=r8_launches["inference"] + resnet["analyzer"] + parallel["analyzer"],
               max_abs_err=r8_err)
@@ -2977,7 +3006,43 @@ def torchvision_shaped_resnet18(seed: int) -> dict:
     return sd
 
 
-def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path) -> dict[str, int]:
+def resnet_sgd_step(dev, rng, fe: MelFrontend) -> dict:
+    """One fp32 ResNet step without augmentation, SGD at lr 1, on the card and
+    the CPU from the same weights (head x15), held by phase 8's loss and
+    param bounds (a front end 1e-5 dB off sets the CPU's own floor). Returns
+    its inputs, the card's and the CPU's results and the floor, as
+    `phase8_train_step` returns LightweightCNN's."""
+    a, b = 2, 8
+    wavs = torch.from_numpy(synth_clips(rng, a * b, TRAIN_CLIP).reshape(a, b, TRAIN_CLIP))
+    labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long()
+    cw = torch.tensor([1.0, 2.0, 0.5, 1.5])
+    init = scaled_head(CompactResNet(generator=torch.Generator().manual_seed(0)).state_dict(), 15.0)
+    (m_gpu, model_gpu, _), (m_cpu, model_cpu, _) = (
+        one_train_step(CompactResNet(), init, device, fe, "sgd", 1.0, wavs, labels, cw)
+        for device in (dev, "cpu"))
+    margins, floor = sgd_step_margins(
+        (m_gpu, model_gpu), (m_cpu, model_cpu),
+        lambda frontend: one_train_step(CompactResNet(), init, "cpu", frontend, "sgd", 1.0, wavs,
+                                        labels, cw)[:2], fe)
+    sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
+    err_loss = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    print(f"phase 20: ResNet fp32 sgd step, lr 1, no augmentation, x15 head: loss cuda "
+          f"{m_gpu['loss']:.6f} cpu {m_cpu['loss']:.6f} (rel {err_loss:.2e}, tol 1e-4); params "
+          f"worst |d| over its bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f} "
+          f"(phase 8's bound; the CPU step with its log-mel 1e-5 dB off, seeds 0-7, moves "
+          f"params by up to {max(f.max() for f in floor.params):.2e}, the norm by {floor.grad_norm:.2e})")
+    check(err_loss <= 1e-4, "ResNet step loss, cuda vs cpu")
+    check(m_gpu["correct"] == m_cpu["correct"], "ResNet step correct count, cuda vs cpu")
+    check(margins.ok, f"ResNet step params and grad norm, cuda vs cpu ({margins})")
+    for k in sd_c:
+        if "running" in k:
+            check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=1e-4, atol=1e-6), f"BN buffer {k}")
+    return dict(fe=fe, wavs=wavs, labels=labels, cw=cw, init=init, floor=floor,
+                card=(param_arrays(model_gpu), m_gpu["grad_norm"]), card_loss=m_gpu["loss"],
+                cpu=(param_arrays(model_cpu), m_cpu["grad_norm"]))
+
+
+def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path) -> dict:
     """CompactResNet18 through the entry points, with the launch counts
     zeroed before and read after each main-path run: the serving engine on a
     seeded bf16 checkpoint (x15 head) against the CPU, and an fp32 one; wav
@@ -2989,7 +3054,8 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
     0.5 s windows; `model.pretrained` from a torchvision-shaped .pt; and
     `ICBHI_FUSED_CNN=1` on a ResNet (rows 8-10 launch 0 times). Returns rows
     1 and 2's launches over these runs: row 1's inference form
-    ("inference"), its training form ("masked"), row 2's ("analyzer")."""
+    ("inference"), its training form ("masked"), row 2's ("analyzer"); and
+    for phase 27 the SGD step's inputs, results and floor ("sgd")."""
     k16, k8 = mel_kernels.log_mel_radix16dif_fused, mel_kernels.log_mel_radix8dif_fused
     launches = {"inference": 0, "masked": 0, "analyzer": 0}
 
@@ -3170,35 +3236,7 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
     del trainer
     torch.cuda.empty_cache()
 
-    # one fp32 step without augmentation, SGD at lr 1, on the card and the
-    # CPU from the same weights (head x15): phase 8's loss and param bounds
-    # (a front end 1e-5 dB off sets the CPU's own floor)
-    a, b = 2, 8
-    wavs = torch.from_numpy(synth_clips(rng, a * b, TRAIN_CLIP).reshape(a, b, TRAIN_CLIP))
-    labels = torch.from_numpy(rng.integers(0, 4, (a, b))).long()
-    cw = torch.tensor([1.0, 2.0, 0.5, 1.5])
-    init = scaled_head(CompactResNet(generator=torch.Generator().manual_seed(0)).state_dict(), 15.0)
-    (m_gpu, model_gpu, _), (m_cpu, model_cpu, _) = (
-        one_train_step(CompactResNet(), init, device, fe, "sgd", 1.0, wavs, labels, cw)
-        for device in (dev, "cpu"))
-    margins, floor = sgd_step_margins(
-        (m_gpu, model_gpu), (m_cpu, model_cpu),
-        lambda frontend: one_train_step(CompactResNet(), init, "cpu", frontend, "sgd", 1.0, wavs,
-                                        labels, cw)[:2], fe)
-    sd_g, sd_c = model_gpu.state_dict(), model_cpu.state_dict()
-    err_loss = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
-    print(f"phase 20: ResNet fp32 sgd step, lr 1, no augmentation, x15 head: loss cuda "
-          f"{m_gpu['loss']:.6f} cpu {m_cpu['loss']:.6f} (rel {err_loss:.2e}, tol 1e-4); params "
-          f"worst |d| over its bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f} "
-          f"(phase 8's bound; the CPU step with its log-mel 1e-5 dB off, seeds 0-7, moves "
-          f"params by up to {max(f.max() for f in floor.params):.2e}, the norm by {floor.grad_norm:.2e})")
-    check(err_loss <= 1e-4, "ResNet step loss, cuda vs cpu")
-    check(m_gpu["correct"] == m_cpu["correct"], "ResNet step correct count, cuda vs cpu")
-    check(margins.ok, f"ResNet step params and grad norm, cuda vs cpu ({margins})")
-    for k in sd_c:
-        if "running" in k:
-            check(torch.allclose(sd_g[k].cpu(), sd_c[k], rtol=1e-4, atol=1e-6), f"BN buffer {k}")
-    del model_gpu
+    sgd = resnet_sgd_step(dev, rng, fe)
 
     # the analyzer with the trained ResNet at 0.5 s windows (row 2)
     zero_counts()
@@ -3275,7 +3313,7 @@ def phase20_resnet(dev, rng, card: str, tmp: Path, corpus: Path, recording: Path
           and fused_ana._apply_fn is fused_ana.classifier.model,
           "a ResNet runs its own forward under ICBHI_FUSED_CNN=1")
     print(f"phase 20: rows 1 and 2 over the ResNet runs: {launches}")
-    return launches
+    return launches | {"sgd": sgd}
 
 
 SEG_RECORDINGS, SEG_CYCLES = 64, 6  # 384 cycles: 288 / 48 / 48, 3 optimizer steps an epoch
@@ -4857,8 +4895,407 @@ def phase26_fused_ranks(dev, card: str, tmp: Path, corpus: Path, sgd: dict,
           f"{time.perf_counter() - start:.1f} s")
     return launches
 
+
+# phase 27: CompactResNet18 and the segmented config on the fused epoch
+
+def pool_mb(graph: torch.cuda.CUDAGraph) -> float:
+    """MB the caching allocator holds in a graph's private memory pool: its
+    segments in `torch.cuda.memory_snapshot()`."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool) / 1e6
+
+
+def perturbed(model: torch.nn.Module, seed: int) -> None:
+    """Every parameter scaled by 1 + 1e-6 u, u uniform in [-1, 1] from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.mul_((1.0 + 1e-6 * (2.0 * torch.rand(prm.shape, generator=g) - 1.0))
+                     .to(prm.device))
+
+
+def hold_histories(what: str, got: dict, want: dict, moved_runs) -> str:
+    """`got` (the fused run's history) against `want` (the per-step run's):
+    the losses within rtol 1e-4, or, where one misses it, within max(rtol
+    1e-4, twice how far the per-step run moves from initial weights 1e-6 off
+    at that epoch), phase 26's rule: `moved_runs()` gives those runs'
+    histories, seeds 0-7 (both rules pass the same histories: the second
+    never bars what the first admits). Checks, and returns a line to print."""
+    keys = ("train_loss", "val_loss")
+    rel = max(abs(x - y) / abs(y) for k in keys for x, y in zip(got[k], want[k]))
+    if rel <= 1e-4:
+        return f"losses max rel {rel:.2e} (tol 1e-4)"
+    moved = moved_runs()
+    worst, rel_moved = 0.0, 0.0
+    for k in keys:
+        for e, w in enumerate(want[k]):
+            floor = max(abs(m[k][e] - w) for m in moved)
+            worst = max(worst, abs(got[k][e] - w) / max(1e-4 * abs(w), 2.0 * floor))
+            rel_moved = max(rel_moved, floor / abs(w))
+    check(worst <= 1.0, f"{what}: fused within rounding of per step ({worst:.3f})")
+    return (f"losses max rel {rel:.2e}, over rtol 1e-4; the per-step run from weights 1e-6 "
+            f"off (seeds 0-7) moves by max rel {rel_moved:.2e}; worst |d| over max(rtol "
+            f"1e-4, twice that move) {worst:.3f}; moved histories {json.dumps(moved)}")
+
+
+def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> dict[str, int]:
+    """CompactResNet18 and the segmented config on the fused epoch, the
+    launch counts zeroed before and read after each main-path run: (a)
+    phase 20's fp32 lr-1 SGD step of the full ResNet (config.yaml, 2 x 8 x 8
+    s, dropout 0) through `train_many` on a cache of its clips: the
+    capture's eager warm-up step against phase 20's step on the card and the
+    CPU by its `step_floor`, then a replay against an eager step from the
+    same state; (b) `Trainer` at config.yaml with `architecture: resnet`
+    (bf16, capturable Adam, augmentation and the head's dropouts on, the
+    cache on) for three epochs on phase 23's 294 / 63 clips, at
+    steps_per_dispatch 1 (per step on the cache) and 0 (fused, each step
+    and eval group a replayed graph); (c) `train_segmented` at
+    config_segmented.yaml (LightweightCNN, 3 s, batch 32 x 4) and
+    `train_icbhi` there with the cache on, steps_per_dispatch 1 and 0, three
+    epochs on phase 21's segmented corpus. The fused histories are held to the per-step ones
+    (`hold_histories`); the ResNet graphs' nodes, captures, pool MB, host
+    calls a step and device ms are printed. Returns row 1's launches
+    ("inference", "masked")."""
+    import copy
+
+    import yaml
+
+    from audio_classification_icbhi_tpu_torch import train_icbhi, train_segmented
+    from audio_classification_icbhi_tpu_torch.parallel import data_parallel as dp_mod
+    from audio_classification_icbhi_tpu_torch.training.trainer_icbhi import TrainerWithICBHI
+
+    k16 = mel_kernels.log_mel_radix16dif_fused
+    launches = {"inference": 0, "masked": 0}
+    start = time.perf_counter()
+
+    def row1_only(what: str) -> tuple[int, int]:
+        counts = (k16.launches, k16.launches_masked)
+        check(counts[0] > 0 and counts[1] > 0 and all(
+            fn.launches + fn.launches_masked == 0 for name, fn in mel_kernels.WRAPPERS.items()
+            if name != "radix16dif_fused"), f"{what} ran row 1, both forms")
+        launches["inference"] += counts[0]
+        launches["masked"] += counts[1]
+        return counts
+
+    # (a) phase 20's SGD step through train_many: the warm-up step, a replay
+    a, b = 2, 8
+    clips = sgd["wavs"].reshape(a * b, -1).numpy()
+    labels = sgd["labels"].reshape(-1).numpy()
+    loader = DeviceCachedLoader(HeldClips(clips, labels), b, device=dev)
+    check(loader.cache.dtype == torch.float32, "float clips off the PCM16 grid stay float32")
+    cw = sgd["cw"].to(dev)
+
+    def sgd_model(state=None):
+        model = CompactResNet()
+        model.load_state_dict(sgd["init"] if state is None else state[0])
+        model.to(dev).set_dropout(0.0)
+        opt = build_optimizer("sgd", model.named_parameters(), 1e-4)
+        if state is not None:
+            opt.load_state_dict(copy.deepcopy(state[1]))
+        return model, opt
+
+    model, opt = sgd_model()
+    fns = make_step_fns(model, sgd["fe"], opt, accum_steps=a)
+    zero_counts()
+    steps = []  # (state before, metrics, params after)
+    for _ in range(2):
+        before = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                  copy.deepcopy(opt.state_dict()))
+        m = fns.train_many(loader.cache, np.arange(a * b).reshape(1, a, b),
+                           labels.reshape(1, a, b), cw, 1.0, 0, 0)
+        steps.append((before, {k: float(v[0]) for k, v in m.items()}, param_arrays(model)))
+    torch.cuda.synchronize()
+    read_epilogue("phase 27 ResNet SGD steps")
+    graph = fns.train_many.graphs["train"]
+    per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()}
+    print(f"phase 27: two lr-1 SGD steps of the full ResNet through train_many: row-1 launches "
+          f"{k16.launches} (the warm-up step's and a replay's), a replay's counted launches "
+          f"{per_replay}; captures {[kind for kind, _ in fns.train_many.captures]}, replays "
+          f"{graph.replays}")
+    check((k16.launches, k16.launches_masked) == (2, 0) and graph.replays == 1
+          and [kind for kind, _ in fns.train_many.captures] == ["train"]
+          and per_replay == {"log_mel_radix16dif_fused.launches": 1,
+                             "log_mel_epilogue.launches": 1},
+          "the ResNet SGD steps: the warm-up step and a replay, row 1 once a replay")
+    launches["inference"] += k16.launches
+    _, m, got = steps[0]
+    vs_card = step_margins((got, m["grad_norm"]), sgd["card"], sgd["floor"])
+    vs_cpu = step_margins((got, m["grad_norm"]), sgd["cpu"], sgd["floor"])
+    loss_err = abs(m["loss"] - sgd["card_loss"]) / abs(sgd["card_loss"])
+    print(f"phase 27: the ResNet warm-up step: loss {m['loss']:.6f} (rel {loss_err:.2e} from "
+          f"phase 20's eager step, tol 1e-5); params worst |d| over phase 20's bound "
+          f"{vs_card.params:.3f} against the card's eager step, {vs_cpu.params:.3f} against the "
+          f"CPU's; grad norm {vs_card.grad_norm:.3f} / {vs_cpu.grad_norm:.3f}")
+    check(loss_err <= 1e-5, "ResNet warm-up step loss")
+    check(vs_card.ok and vs_cpu.ok, f"ResNet warm-up step params ({vs_card}; {vs_cpu})")
+    before, m, got = steps[1]
+    ref_model, ref_opt = sgd_model(before)
+    ref = make_step_fns(ref_model, sgd["fe"], ref_opt, accum_steps=a).train_step(
+        sgd["wavs"].to(dev), sgd["labels"].to(dev), cw, 1.0)
+    ref_loss, ref_params = float(ref["loss"]), param_arrays(ref_model)
+    margins = step_margins((got, m["grad_norm"]), (ref_params, float(ref["grad_norm"])),
+                           sgd["floor"])
+    loss_err = abs(m["loss"] - ref_loss) / abs(ref_loss)
+    same = max(float(np.abs(x - y).max()) for x, y in zip(got, ref_params))
+    print(f"phase 27: the ResNet replay: loss {m['loss']:.6f} (rel {loss_err:.2e} from an eager "
+          f"step from the same state, tol 1e-5); params max |d| {same:.3e}, worst |d| over "
+          f"phase 20's bound {margins.params:.3f}, grad norm {margins.grad_norm:.3f}")
+    check(loss_err <= 1e-5, "ResNet replay loss")
+    check(margins.ok, f"ResNet replay params ({margins})")
+    del model, opt, fns, ref_model, ref_opt, loader
+    torch.cuda.empty_cache()
+
+    # (b) the ResNet Trainer on the cache: per step, and fused
+    cfg = p23_config(corpus)
+    cfg["model"]["architecture"] = "resnet"
+
+    def resnet_trainer(spd: int, name: str) -> Trainer:
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["training"].update(steps_per_dispatch=spd,
+                                   checkpoint_dir=str(tmp / f"p27_{name}" / "ckpt"),
+                                   log_dir=str(tmp / f"p27_{name}" / "runs"))
+        return quiet(Trainer, build_model(run_cfg), *p23_datasets(corpus, run_cfg), run_cfg,
+                     device="cuda")
+
+    runs = {}
+    for spd in (1, 0):
+        zero_counts()
+        trainer = resnet_trainer(spd, str(spd))
+        check(isinstance(trainer.model, CompactResNet)
+              and isinstance(trainer.train_loader, DeviceCachedLoader)
+              and trainer._use_multi_dispatch() == trainer._use_fused_eval() == (spd != 1),
+              f"the ResNet trainer at steps_per_dispatch {spd}: the cache and its path")
+        hist, times = train_epochs(trainer)
+        read_epilogue(f"phase 27 ResNet trainer at steps_per_dispatch {spd}")
+        counts = row1_only(f"the ResNet trainer at steps_per_dispatch {spd}")
+        caps = trainer.steps.train_many.captures
+        check(sorted(kind for kind, _ in caps) == (["eval", "train"] if spd != 1 else []),
+              f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
+        runs[spd] = dict(trainer=trainer, hist=hist, times=times)
+        print(f"phase 27: [{card}] ResNet Trainer at config.yaml, cache on, steps_per_dispatch "
+              f"{spd} ({'per step' if spd == 1 else 'fused'}), {P23_EPOCHS} epochs of "
+              f"{len(trainer.train_dataset)} / {len(trainer.val_dataset)} clips: train + "
+              f"validate ms by epoch " + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
+              + "; captures (warm-up included) "
+              + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+              + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
+              f"{counts[1]} masked (training)")
+
+    def moved_resnet_runs():
+        moved = []
+        for seed in FLOOR_SEEDS:
+            trainer = resnet_trainer(1, f"floor{seed}")
+            perturbed(trainer.model, seed)
+            moved.append(train_epochs(trainer)[0])
+        return moved
+
+    print("phase 27: the ResNet's fused history against per step: "
+          + hold_histories("the ResNet trainer", runs[0]["hist"], runs[1]["hist"],
+                           moved_resnet_runs))
+
+    fused, per = runs[0]["trainer"], runs[1]["trainer"]
+    train_graph = fused.steps.train_many.graphs["train"]
+    eval_graph = fused.steps.eval_many.graphs["eval"]
+
+    # the eval graph against eager forwards of the same rows on the fused
+    # run's last weights: one of the graph's G x 32 rows, and one a batch of
+    # 32 (the per-step run's validation)
+    vl, cwf = fused.val_loader, fused.class_weights
+    batches = vl._batch_indices()
+    n_val, g_rows = len(batches), 128 // fused.batch_size
+    idx = np.zeros((-(-n_val // g_rows) * g_rows, fused.batch_size), np.int64)
+    mask = np.zeros(idx.shape, np.float32)
+    for i, bidx in enumerate(batches):
+        idx[i, :len(bidx)], mask[i, :len(bidx)] = bidx, 1.0
+    idx[n_val:] = idx[0]  # eval_many's padding: the first batch's rows, masked out
+    lab = vl.labels_all[idx]
+    graph_out = [x.cpu().numpy() for x in fused.steps.eval_many(
+        vl.cache, idx[:n_val], lab[:n_val], mask[:n_val], cwf)]
+
+    @torch.no_grad()
+    def eager_eval(rows: slice) -> list[np.ndarray]:
+        fused.model.eval()
+        wavs = vl.gather(idx[rows])
+        logits = fused.model(features_from_wavs(fused.frontend, wavs.reshape(-1, wavs.shape[-1])))
+        logits = logits.reshape(wavs.shape[:2] + (-1,))
+        labels_t = torch.from_numpy(lab[rows]).to(dev)
+        mask_t = torch.from_numpy(mask[rows]).to(dev)
+        num, den = weighted_cross_entropy(logits, labels_t, cwf, mask_t, dim=-1)
+        return [num.cpu().numpy(), den.cpu().numpy(), logits.argmax(-1).cpu().numpy()]
+
+    one_group = [x[:n_val] for x in eager_eval(slice(0, len(idx)))]
+    per_batch = [np.concatenate(parts) for parts in zip(*(eager_eval(slice(i, i + 1))
+                                                          for i in range(n_val)))]
+    real = mask[:n_val].astype(bool)
+    for what, ref, tol in (("an eager forward of the same 128 rows", one_group, 1e-5),
+                           ("eager forwards of 32 rows, as per step", per_batch, None)):
+        rel = float(np.max(np.abs(graph_out[0] - ref[0]) / np.abs(ref[0])))
+        agree = int((graph_out[3][real] == ref[2][real]).sum())
+        print(f"phase 27: the ResNet eval graph on the fused run's last weights against {what}: "
+              f"loss sums max rel {rel:.2e}"
+              + (f" (tol {tol:g})" if tol else "") + f"; predictions equal on {agree} of "
+              f"{int(real.sum())} clips")
+        if tol is not None:
+            check(rel <= tol and agree == int(real.sum()),
+                  f"the ResNet eval graph against {what}")
+
+    for what, g, form in (("train", train_graph, "launches_masked"),
+                          ("eval", eval_graph, "launches")):
+        kinds = node_kinds(list_graph_nodes(g.graph))
+        _, found = radix8_nodes(g.graph)
+        counted = {f"{fn.__name__}.{attr}": n for (fn, attr), n in g.kernel_launches.items()}
+        print(f"phase 27: [{card}] the ResNet's {what} graph ({tuple(g.static[0].shape)} rows "
+              f"in): nodes by kind {json.dumps(kinds)}, {found}; counted a replay {counted}; "
+              f"replays over the {P23_EPOCHS} epochs {g.replays}; its memory pool "
+              f"{pool_mb(g.graph):.1f} MB")
+        check(found == {stem: 1 for stem in RADIX8_STEMS}, f"the ResNet {what} graph holds row 1 "
+                                                          f"once")
+        check(counted == {f"log_mel_radix16dif_fused.{form}": 1, "log_mel_epilogue.launches": 1},
+              f"the ResNet {what} graph's row-1 form counted once a replay")
+    tl_ = fused.train_loader
+    idxs = tl_.epoch_index_batches()[:8].reshape(4, 2, 32)
+    lbls = tl_.labels_all[idxs]
+    lr = float(fused.scheduler.lr)
+
+    def fused_steps():
+        return fused.steps.train_many(tl_.cache, idxs, lbls, fused.class_weights, lr, 9, 0)
+
+    fused_steps()
+    calls = host_calls(fused_steps, 4)
+    fused_ms = cuda_ms(fused_steps, iters=3, warmup=1) / 4
+    wavs = tl_.gather(idxs[0])
+    labels_t = torch.from_numpy(lbls[0]).long().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def eager_step():
+        return per.steps.train_step(wavs, labels_t, per.class_weights, lr, generator=gen)
+
+    eager_ms = cuda_ms(eager_step, iters=10, warmup=3)
+    eager_calls = host_calls(lambda: (eager_step(), eager_step()), 2)
+    records = device_records(lambda: (eager_step(), eager_step()), 2)
+    graph_step_ms = cuda_ms(train_graph.graph.replay, iters=10, warmup=2)
+    graph_eval_ms = cuda_ms(eval_graph.graph.replay, iters=10, warmup=2)
+    epoch = {spd: [t + v for t, v in runs[spd]["times"][1:]] for spd in runs}
+    print(f"phase 27: [{card}] ResNet host calls a step: per step {sum(eager_calls.values()):.0f} "
+          f"{json.dumps({k: round(v, 1) for k, v in eager_calls.items()})}; fused "
+          f"{sum(calls.values()):.1f} {json.dumps({k: round(v, 2) for k, v in calls.items()})}; "
+          f"an eager step's device records (the profiler) {json.dumps(records)}")
+    print(f"phase 27: [{card}] ResNet train step at config.yaml (32 x 2 x 8 s, bf16, capturable "
+          f"adam, augmentation on) by CUDA events back to back: per step {eager_ms:.3f} ms, "
+          f"fused {fused_ms:.3f} ms a step; the graphed step alone (replays back to back) "
+          f"{graph_step_ms:.3f} ms; an eval group of "
+          f"{tuple(eval_graph.static[0].shape)[1:]} batches x rows as a graph "
+          f"{graph_eval_ms:.3f} ms; steady epochs (train + validate) fused "
+          f"{', '.join(f'{t:.1f}' for t in epoch[0])} ms, per step "
+          f"{', '.join(f'{t:.1f}' for t in epoch[1])} ms")
+    del runs, fused, per, train_graph, eval_graph
+    torch.cuda.empty_cache()
+
+    # (c) train_segmented and train_icbhi at config_segmented.yaml on the
+    # cache, per step and fused, through the entry points; the graphs they
+    # capture are recorded
+    segmented = tmp / "icbhi_segmented"
+    seg_config = str(REPO / "config_segmented.yaml")
+
+    def seg_argv(spd: int, name: str) -> list[str]:
+        scfg = load_config(seg_config)
+        scfg["data"]["cache_on_device"] = True
+        scfg["training"].update(steps_per_dispatch=spd,
+                                checkpoint_dir=str(tmp / f"p27_{name}" / "ckpt"),
+                                log_dir=str(tmp / f"p27_{name}" / "runs"))
+        path = tmp / f"p27_{name}.yaml"
+        path.write_text(yaml.safe_dump(scfg))
+        return ["--config", str(path), "--data-path", str(segmented),
+                "--epochs", str(P23_EPOCHS), "--no-plots"]
+
+    class Recorded(GraphedStep):
+        """GraphedStep, each capture kept in `made` until read."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    for entry, trainer_cls in ((train_segmented, Trainer), (train_icbhi, TrainerWithICBHI)):
+        name = entry.__name__.rsplit(".", 1)[-1]
+        seg = {}
+        for spd in (1, 0):
+            made: list[GraphedStep] = []
+            zero_counts()
+            dp_mod.GraphedStep = Recorded
+            try:
+                t0 = time.perf_counter()
+                hist = quiet(entry.main, seg_argv(spd, f"{name}{spd}"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                dp_mod.GraphedStep = GraphedStep
+            read_epilogue(f"phase 27 {name} at steps_per_dispatch {spd}")
+            counts = row1_only(f"{name} at steps_per_dispatch {spd}")
+            replays = [g.replays for g in made]
+            made.clear()  # the trainer is gone: its graphs are not replayed again
+            check(len(replays) == (2 if spd != 1 else 0) and all(n > 0 for n in replays),
+                  f"{name} at steps_per_dispatch {spd}: captures {len(replays)}, replays "
+                  f"{replays}")
+            check(all(math.isfinite(v) for vals in hist.values() for v in vals),
+                  "finite history")
+            seg[spd] = hist
+            print(f"phase 27: [{card}] {name} at config_segmented.yaml, cache on, "
+                  f"steps_per_dispatch {spd} ({'per step' if spd == 1 else 'fused'}), "
+                  f"{P23_EPOCHS} epochs: {wall:.1f} s with start-up; the graphs' replays "
+                  f"(train, eval) {replays}; history {json.dumps(hist)}; row-1 launches "
+                  f"{counts[0]} (validation), {counts[1]} masked (training)")
+
+        def moved_segmented_runs(name=name, trainer_cls=trainer_cls):
+            moved = []
+            for seed in FLOOR_SEEDS:
+                args = train_entry.parse_args(seg_argv(1, f"{name}floor{seed}"))
+                trainer = quiet(train_entry.build_trainer, args, ICBHISegmentedDataset,
+                                trainer_cls, seg_config)
+                perturbed(trainer.model, seed)
+                moved.append(quiet(trainer.train))
+            return moved
+
+        print(f"phase 27: {name}'s fused history against per step: "
+              + hold_histories(name, seg[0], seg[1], moved_segmented_runs))
+    print(f"phase 27: row 1 over the phase's main paths {launches}; "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def phase27_alone() -> int:
+    """`python3 chip_smoke.py --phase27`: the build, phase 9's and phase 21's
+    corpora, phase 20's ResNet SGD step and phase 27, without the other
+    phases. Exits non-zero on any failed check."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"{card}; torch {torch.__version__}; CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        corpus = generate_icbhi_dataset(tmp / "corpus", num_recordings=N_RECORDINGS, seed=0)
+        raw = generate_icbhi_corpus_fixture(tmp / "icbhi_raw", num_recordings=SEG_RECORDINGS,
+                                            cycles_per_recording=SEG_CYCLES, seed=21)
+        quiet(preprocess_icbhi.main, ["--input-dir", str(raw / "audio_and_txt_files"),
+                                      "--output-dir", str(tmp / "icbhi_segmented")])
+        cfg = load_config(str(REPO / "config.yaml"))
+        cfg["model"]["architecture"] = "resnet"
+        sgd = resnet_sgd_step(dev, np.random.default_rng(0), MelFrontend.from_config(cfg))
+        phase27_resnet_fused(dev, card, tmp, corpus, sgd)
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         sys.exit(compare_parent(Path(sys.argv[2])))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR]")
+    if sys.argv[1:] == ["--phase27"]:
+        sys.exit(phase27_alone())
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR | --phase27]")
     sys.exit(main())
