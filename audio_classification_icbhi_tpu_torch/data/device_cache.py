@@ -20,6 +20,10 @@ any CUDA graph is captured, so every graph of the fused epoch reads it by
 address and no graph's memory pool holds it.
 
 Enable with config data.cache_on_device: true (the Trainer picks the loader).
+
+Construction runs in three spans of the recorder (`tracing.py`):
+`cache.decode` (the files into float32), `cache.pcm16` (the round-trip
+check and the int16 image) and `cache.upload` (the copy to the device).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch import tracing
 from audio_classification_icbhi_tpu_torch.data.loader import BatchLoader
 
 
@@ -100,16 +105,18 @@ class DeviceCachedLoader(BatchLoader):
             raise ValueError(f"cache_dtype must be auto|int16|float32, got {cache_dtype!r}")
         n = len(dataset)
         chunks_w, chunks_l = [], []
-        for start in range(0, n, 512):
-            w, lbl = self._load_batch(np.arange(start, min(start + 512, n)))
-            chunks_w.append(w)
-            chunks_l.append(lbl)
-        wavs = np.concatenate(chunks_w) if chunks_w else np.zeros((0, 0), np.float32)
+        with tracing.span("cache.decode"):
+            for start in range(0, n, 512):
+                w, lbl = self._load_batch(np.arange(start, min(start + 512, n)))
+                chunks_w.append(w)
+                chunks_l.append(lbl)
+            wavs = np.concatenate(chunks_w) if chunks_w else np.zeros((0, 0), np.float32)
         self.labels_all = (np.concatenate(chunks_l).astype(np.int32) if chunks_l
                            else np.zeros(0, np.int32))
         stored = wavs
         if cache_dtype in ("auto", "int16"):
-            q = _pcm16_quantize(wavs)
+            with tracing.span("cache.pcm16"):
+                q = _pcm16_quantize(wavs)
             if q is not None:
                 stored = q
             elif cache_dtype == "int16":
@@ -118,7 +125,8 @@ class DeviceCachedLoader(BatchLoader):
                     "losslessly (resampled/normalized/float-source audio); use "
                     "'auto' or 'float32'")
         self.device = torch.device(device)
-        self._cache = torch.from_numpy(np.ascontiguousarray(stored)).to(self.device)
+        with tracing.span("cache.upload"):
+            self._cache = torch.from_numpy(np.ascontiguousarray(stored)).to(self.device)
 
     @property
     def nbytes(self) -> int:

@@ -25,6 +25,8 @@ their launches: `wavio.load_audio` adds one to `native` or `numpy`;
 assembled to `native`, and the rows it sent to the per-row path (another
 sample rate, or a file the library refused) to `per_row`; those rows then
 count again under `native` or `numpy` as `load_audio` decodes them.
+`tracing.counters()` reports them as `rows.native`, `rows.numpy` and
+`rows.per_row`.
 """
 
 from __future__ import annotations

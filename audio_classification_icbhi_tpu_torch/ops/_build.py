@@ -6,6 +6,10 @@ through ctypes. No PyTorch header is compiled, which keeps a build to seconds.
 All sources build together, one nvcc process each. A library is named by a
 digest of its source, the shared headers (`csrc/*.cuh`) and the flags, so an
 edited source or header rebuilds and an unchanged one loads as it is.
+
+The recorder (`tracing.py`) holds the span `kernels.build` (each
+`build_all`) and counts each library loaded as `kernels.built` (nvcc built
+it in this process) or `kernels.cached` (found built).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from audio_classification_icbhi_tpu_torch import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -27,6 +33,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # `const char* cuda_error_string(int)`.
 _SIGNATURES: dict[str, dict[str, list]] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILT: set[str] = set()  # stems nvcc built in this process
 
 
 def declare(name: str, signatures: dict[str, list]) -> None:
@@ -59,35 +66,39 @@ def build_all() -> dict[str, tuple[Path, str]]:
     Returns {source stem: (library path, compiler log)}; the log holds
     ptxas's register and shared-memory report, or "cached". Raises with the
     log of any source that fails to compile."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: dict[str, tuple[Path, str]] = {}
-    running = []
-    for src in sorted(CSRC.glob("*.cu")):
-        lib = _target(src)
-        if lib.exists():
-            out[src.stem] = (lib, "cached")
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((src, lib, tmp, proc))
-    failed = []
-    for src, lib, tmp, proc in running:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failed.append(f"{src.name}:\n{log}")
-            continue
-        os.replace(tmp, lib)
-        out[src.stem] = (lib, log)
-    if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
-    return out
+    with tracing.span("kernels.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out: dict[str, tuple[Path, str]] = {}
+        running = []
+        for src in sorted(CSRC.glob("*.cu")):
+            lib = _target(src)
+            if lib.exists():
+                out[src.stem] = (lib, "cached")
+                continue
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            running.append((src, lib, tmp, proc))
+        failed = []
+        for src, lib, tmp, proc in running:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{log}")
+                continue
+            os.replace(tmp, lib)
+            out[src.stem] = (lib, log)
+            _BUILT.add(src.stem)
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, built on first use."""
     if name not in _LIBS:
         lib = ctypes.CDLL(str(build_all()[name][0]))
+        tracing.count("kernels.built" if name in _BUILT else "kernels.cached")
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

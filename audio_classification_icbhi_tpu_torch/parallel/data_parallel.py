@@ -58,6 +58,18 @@ BatchNorm reads running statistics), so its graph holds no collective;
 after the replays one all-reduce sums the (3, S) per-batch sums and one
 all-gather joins the (S, b) predictions along the batch axis in rank
 order, the JAX `P(None, "data")` out_spec's global (S, B).
+
+Tracing (`tracing.py`): `train_many` runs in two spans,
+`train_many.upload` (the rows' upload, the rate, the graph's lookup, and
+its capture with the warm-up step where there is none yet) and
+`train_many.replays` (the steps); `eval_many` in three,
+`eval_many.upload`, `eval_many.replays` and `eval_many.collect` (the
+collectives). A captured train step holds device marks at its phase boundaries: the start, after the input
+and front end (the cache gather, dequantize, the augmentation's draws and
+the front end), after each microbatch's forward and loss and after its
+backward, and after the update (the gradient reduce, the clip and the
+optimizer's step); `train_many` leaves them with the recorder after its
+replays.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch import tracing
 from audio_classification_icbhi_tpu_torch.data.device_cache import dequantize
 from audio_classification_icbhi_tpu_torch.ops import augment as aug_ops
 from audio_classification_icbhi_tpu_torch.ops.mel import MelFrontend, normalize_spectrogram
@@ -233,7 +246,7 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
     """Train and eval steps over `model` and `optimizer`, updated in place.
 
     train_step(wavs (A, B, L), labels (A, B), class_weights (C,), lr,
-               generator=None, draws=None[, scale_state]) -> metrics
+               generator=None, draws=None[, scale_state], marks=None) -> metrics
         A ≤ accum_steps microbatches make one optimizer step; B is this
         rank's rows (the whole batch without a mesh). lr is a float, or a
         0-d tensor on the device; Adam and AdamW built capturable always
@@ -247,7 +260,8 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         0-d tensors left on the device. With dynamic_loss_scale the step
         takes scale_state and returns (metrics, scale_state), the metrics
         with loss_scale and step_skipped; it reads one flag from the device
-        (the skip is decided on the host, as GradScaler's is).
+        (the skip is decided on the host, as GradScaler's is). `marks` (a
+        captured step's `tracing.StepMarks`) records the phase boundaries.
 
     eval_step: `make_eval_step`'s.
 
@@ -316,7 +330,9 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
 
     def train_step(wavs: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
                    lr: float, generator: torch.Generator | None = None,
-                   draws: Sequence[aug_ops.AugmentDraws] | None = None, scale_state=None):
+                   draws: Sequence[aug_ops.AugmentDraws] | None = None, scale_state=None,
+                   marks: tracing.StepMarks | None = None):
+        mark = marks.mark if marks is not None else (lambda phase: None)
         a, b, length = wavs.shape
         if a > accum_steps:
             raise ValueError(f"{a} microbatches exceed accum_steps={accum_steps}")
@@ -331,16 +347,19 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
             feats = features_from_wavs_grouped(frontend, wavs, augment=augment, draws=draws)
+        mark("front_end")
         nums, dens, corrects = [], [], []
         for i in range(a):
             logits = model(feats[i], generator=generator)
             num, den = weighted_cross_entropy(logits, labels[i], class_weights)
             den = all_reduce_sum(den.detach(), dp)  # Σ w over every rank; no gradient
             loss = num / den
+            mark("forward")
             if dynamic_loss_scale:
                 (loss * scale).backward()
             else:
                 (loss / accum_steps).backward()
+            mark("backward")
             nums.append(num.detach())
             dens.append(den)
             corrects.append((logits.detach().argmax(-1) == labels[i]).sum().float())
@@ -361,6 +380,7 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         if not dynamic_loss_scale:
             metrics["grad_norm"] = clip_by_global_norm(grads, max_grad_norm)
             optimizer.step()
+            mark("update")
             return metrics
         torch._foreach_div_(grads, accum_steps * scale)
         finite = bool(all_finite(grads))  # the same on every rank: the gradients are reduced
@@ -380,10 +400,15 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
 
     def gathered_step(cache, rows, class_weights, lr, generator):
         """One optimizer step on rows (2, A, B) int64 (cache indices,
-        labels): (4,) loss, correct, count, grad_norm."""
+        labels): (4,) loss, correct, count, grad_norm. While it is
+        captured, its marks go to `capture_marks`."""
         a, b = rows.shape[1], rows.shape[2]
+        marks = tracing.step_marks(cache.device)
+        if marks is not None:
+            capture_marks.append(marks)
+            marks.mark("start")
         wavs = dequantize(cache.index_select(0, rows[0].reshape(-1))).reshape(a, b, -1)
-        m = train_step(wavs, rows[1], class_weights, lr, generator=generator)
+        m = train_step(wavs, rows[1], class_weights, lr, generator=generator, marks=marks)
         return torch.stack([m["loss"], m["correct"], m["count"], m["grad_norm"]])
 
     @torch.no_grad()
@@ -402,7 +427,7 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         return torch.cat([sums, preds.float()], dim=1)
 
     graphs: dict[str, GraphedStep] = {}
-    captures: list[tuple[str, float]] = []  # (kind, host seconds) of every capture
+    capture_marks: list[tracing.StepMarks] = []  # of the train step being captured
     sides: dict[str, tuple] = {}  # kind -> (memory pool, capture stream)
     # the watchdog's event queries must not invalidate a capture (above)
     capture_mode = "global" if dp is None else "thread_local"
@@ -427,7 +452,6 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         step = make(pool=pool, stream=stream, warm=first)
         step.key = key()  # after the capture: its warm-up may create optimizer state
         graphs[kind] = step
-        captures.append((kind, step.capture_s))
         return step
 
     def took_first(step: GraphedStep, out: torch.Tensor) -> int:
@@ -440,47 +464,77 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         step.first = None
         return 1
 
+    def train_graph(cache: torch.Tensor, rows: torch.Tensor, class_weights: torch.Tensor, lr,
+                    seeds: list[int]) -> GraphedStep:
+        """The train step's graph over these operands, its rate set to lr."""
+        device = cache.device
+        # Adam and AdamW built capturable read the rate from the device
+        rate = torch.full((), float(lr), device=device) if device_lr else float(lr)
+
+        def make(pool, stream, warm):
+            # the warm-up is step 0, drawing what an eager step 0 draws
+            generator = torch.Generator(device=device).manual_seed(seeds[0])
+
+            def fn(r, *static_rate):  # the rate's static buffer, or none: SGD's is baked
+                return gathered_step(cache, r, class_weights,
+                                     static_rate[0] if device_lr else rate, generator)
+
+            capture_marks.clear()
+            step = GraphedStep(fn, [rows[0]] + ([rate] if device_lr else []),
+                               stream=stream, kind="train", warm=warm, generator=generator,
+                               pool=pool, capture_error_mode=capture_mode)
+            step.marks = capture_marks.pop() if capture_marks else None
+            return step
+
+        step = graphed("train", device, lambda: (
+            cache.data_ptr(), tuple(cache.shape), cache.dtype, tuple(rows.shape[1:]),
+            class_weights.data_ptr(), None if device_lr else rate,
+            tuple(t.data_ptr() for t in state_tensors())), make)
+        if device_lr:
+            step.static[1].copy_(rate)
+        return step
+
     def train_many(cache: torch.Tensor, idxs, labels, class_weights: torch.Tensor, lr,
                    epoch: int, step0: int):
         device = cache.device
-        idxs = torch.as_tensor(idxs, dtype=torch.int64)
-        own = local_batch_slice(idxs.shape[-1], dp)  # this rank's columns
-        rows = to_device(device, torch.stack(
-            [idxs[..., own], torch.as_tensor(labels, dtype=torch.int64)[..., own]], dim=1))
-        k = rows.shape[0]
-        seeds = [step_seed(seed, epoch, step0 + s, seed_rank) for s in range(k)]
-        out = torch.empty((k, 4), device=device)
-        if device.type != "cuda":
-            for s in range(k):
-                generator = torch.Generator(device=device).manual_seed(seeds[s])
-                out[s] = gathered_step(cache, rows[s], class_weights, lr, generator)
-        else:
-            # Adam and AdamW built capturable read the rate from the device
-            rate = torch.full((), float(lr), device=device) if device_lr else float(lr)
-
-            def make(pool, stream, warm):
-                # the warm-up is step 0, drawing what an eager step 0 draws
-                generator = torch.Generator(device=device).manual_seed(seeds[0])
-
-                def fn(r, *static_rate):  # the rate's static buffer, or none: SGD's is baked
-                    return gathered_step(cache, r, class_weights,
-                                         static_rate[0] if device_lr else rate, generator)
-
-                return GraphedStep(fn, [rows[0]] + ([rate] if device_lr else []), stream=stream,
-                                   warm=warm, generator=generator, pool=pool,
-                                   capture_error_mode=capture_mode)
-
-            step = graphed("train", device, lambda: (
-                cache.data_ptr(), tuple(cache.shape), cache.dtype, tuple(rows.shape[1:]),
-                class_weights.data_ptr(), None if device_lr else rate,
-                tuple(t.data_ptr() for t in state_tensors())), make)
-            if device_lr:
-                step.static[1].copy_(rate)
-            for s in range(took_first(step, out), k):
-                step.generator.manual_seed(seeds[s])
-                out[s].copy_(step.replay(rows[s]))
+        with tracing.span("train_many.upload"):
+            idxs = torch.as_tensor(idxs, dtype=torch.int64)
+            own = local_batch_slice(idxs.shape[-1], dp)  # this rank's columns
+            rows = to_device(device, torch.stack(
+                [idxs[..., own], torch.as_tensor(labels, dtype=torch.int64)[..., own]], dim=1))
+            k = rows.shape[0]
+            seeds = [step_seed(seed, epoch, step0 + s, seed_rank) for s in range(k)]
+            out = torch.empty((k, 4), device=device)
+            step = train_graph(cache, rows, class_weights, lr, seeds) \
+                if device.type == "cuda" else None
+            start = 0 if step is None else took_first(step, out)
+        with tracing.span("train_many.replays"):
+            if step is None:
+                for s in range(k):
+                    generator = torch.Generator(device=device).manual_seed(seeds[s])
+                    out[s] = gathered_step(cache, rows[s], class_weights, lr, generator)
+            else:
+                for s in range(start, k):
+                    step.generator.manual_seed(seeds[s])
+                    out[s].copy_(step.replay(rows[s]))
+        if step is not None and k > start:
+            tracing.marks_pending(step.marks)
         return {"loss": out[:, 0], "correct": out[:, 1], "count": out[:, 2],
                 "grad_norm": out[:, 3]}
+
+    def eval_graph(cache: torch.Tensor, rows: torch.Tensor,
+                   class_weights: torch.Tensor) -> GraphedStep:
+        """The eval group's graph over these operands."""
+        def make(pool, stream, warm):
+            def fn(r):
+                return eval_group(cache, r, class_weights)
+
+            return GraphedStep(fn, [rows[0]], stream=stream, kind="eval", warm=warm,
+                               pool=pool, capture_error_mode=capture_mode)
+
+        return graphed("eval", cache.device, lambda: (
+            cache.data_ptr(), tuple(cache.shape), cache.dtype, tuple(rows.shape[2:]),
+            class_weights.data_ptr()), make)
 
     def eval_many(cache: torch.Tensor, idxs, labels, mask, class_weights: torch.Tensor):
         device = cache.device
@@ -489,46 +543,40 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
         if s == 0:
             z = torch.zeros(0, device=device)
             return z, z, z, torch.zeros((0, b_all), dtype=torch.int64, device=device)
-        own = local_batch_slice(b_all, dp)  # this rank's columns
-        rows = torch.stack([idxs, torch.as_tensor(labels, dtype=torch.int64),
-                            torch.as_tensor(mask).to(torch.int64)])[:, :, own]  # (3, S, b)
-        b = rows.shape[2]
-        g = max(1, 128 // b)
-        pad = (-s) % g
-        if pad:  # repeated rows of the first batch, masked out
-            fill = rows[:, :1].expand(3, pad, b).clone()
-            fill[2] = 0
-            rows = torch.cat([rows, fill], dim=1)
-        n = rows.shape[1] // g
-        rows = to_device(device, rows.reshape(3, n, g, b).permute(1, 0, 2, 3).contiguous())
-        out = torch.empty((n, g, 3 + b), device=device)
-        if device.type != "cuda":
-            for i in range(n):
-                out[i] = eval_group(cache, rows[i], class_weights)
-        else:
-            def make(pool, stream, warm):
-                def fn(r):
-                    return eval_group(cache, r, class_weights)
-
-                return GraphedStep(fn, [rows[0]], stream=stream, warm=warm, pool=pool,
-                                   capture_error_mode=capture_mode)
-
-            step = graphed("eval", device, lambda: (
-                cache.data_ptr(), tuple(cache.shape), cache.dtype, (g, b),
-                class_weights.data_ptr()), make)
-            for i in range(took_first(step, out), n):
-                out[i].copy_(step.replay(rows[i]))
-        out = out.reshape(n * g, 3 + b)[:s]
-        # the global sums, and every rank's columns of the predictions in
-        # rank order (no-ops without a group)
-        sums = all_reduce_sum(out[:, :3].T.contiguous(), dp)
-        preds = all_gather_rows(out[:, 3:].long(), dp, dim=1)
+        with tracing.span("eval_many.upload"):
+            own = local_batch_slice(b_all, dp)  # this rank's columns
+            rows = torch.stack([idxs, torch.as_tensor(labels, dtype=torch.int64),
+                                torch.as_tensor(mask).to(torch.int64)])[:, :, own]  # (3, S, b)
+            b = rows.shape[2]
+            g = max(1, 128 // b)
+            pad = (-s) % g
+            if pad:  # repeated rows of the first batch, masked out
+                fill = rows[:, :1].expand(3, pad, b).clone()
+                fill[2] = 0
+                rows = torch.cat([rows, fill], dim=1)
+            n = rows.shape[1] // g
+            rows = to_device(device, rows.reshape(3, n, g, b).permute(1, 0, 2, 3).contiguous())
+            out = torch.empty((n, g, 3 + b), device=device)
+            step = eval_graph(cache, rows, class_weights) if device.type == "cuda" else None
+            start = 0 if step is None else took_first(step, out)
+        with tracing.span("eval_many.replays"):
+            if step is None:
+                for i in range(n):
+                    out[i] = eval_group(cache, rows[i], class_weights)
+            else:
+                for i in range(start, n):
+                    out[i].copy_(step.replay(rows[i]))
+        with tracing.span("eval_many.collect"):
+            out = out.reshape(n * g, 3 + b)[:s]
+            # the global sums, and every rank's columns of the predictions in
+            # rank order (no-ops without a group)
+            sums = all_reduce_sum(out[:, :3].T.contiguous(), dp)
+            preds = all_gather_rows(out[:, 3:].long(), dp, dim=1)
         return sums[0], sums[1], sums[2], preds
 
-    # the captured steps by kind ("train", "eval") and every capture so far,
-    # for inspection
+    # the captured steps by kind ("train", "eval"), for inspection; the
+    # recorder counts their captures and replays (`tracing.counters()`)
     train_many.graphs = eval_many.graphs = graphs
-    train_many.captures = eval_many.captures = captures
     return TrainStepFns(train_step=train_step, eval_step=eval_step, train_many=train_many,
                         eval_many=eval_many)
 

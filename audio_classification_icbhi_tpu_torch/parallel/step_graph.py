@@ -25,32 +25,24 @@ The kernel wrappers count their launches on the host, and a replay makes no
 host call into them, so a `GraphedStep` keeps the counts true: the capture's
 own increments are taken back (it launched nothing) and kept as the
 launches one replay makes, which each replay adds.
+
+Each step has a kind ("train", "eval"), under which the recorder
+(`tracing.py`) keeps its spans `graph.warmup.<kind>` (the eager warm-up,
+synchronised) and `graph.capture.<kind>`, and its counters
+`graph.captures.<kind>` and `graph.replays.<kind>`.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Sequence
 
 import torch
 
-
-def launch_counters() -> list[tuple[object, str]]:
-    """(function, attribute) of every launch count the kernel wrappers keep."""
-    from audio_classification_icbhi_tpu_torch.ops import conv_kernels, mel_kernels
-
-    out = [(fn, attr) for fn in mel_kernels.WRAPPERS.values()
-           for attr in ("launches", "launches_masked")]
-    out.append((mel_kernels.log_mel_epilogue, "launches"))
-    out += [(fn, "launches") for fn in (conv_kernels.fused_conv_block1,
-                                        conv_kernels.fused_conv_block1_batched,
-                                        conv_kernels.fused_conv_block2,
-                                        conv_kernels.fused_conv_block3)]
-    return out
+from audio_classification_icbhi_tpu_torch import tracing
 
 
 def _read_counts() -> list[int]:
-    return [getattr(fn, attr) for fn, attr in launch_counters()]
+    return [getattr(fn, attr) for fn, attr in tracing.launch_counters()]
 
 
 class GraphedStep:
@@ -66,15 +58,14 @@ class GraphedStep:
     is a memory-pool handle shared with earlier captures of the same step
     on the same stream (`torch.cuda.graph_pool_handle()`), so that a
     re-capture reuses their memory. `capture_error_mode` is
-    `torch.cuda.graph`'s. `kernel_launches` maps each counted
-    kernel wrapper (function, attribute) to the launches one replay makes;
-    `capture_s` is the host time of the warm-up and the capture."""
+    `torch.cuda.graph`'s. `kind` names the step in the recorder's spans
+    and counters (module doc). `kernel_launches` maps each counted
+    kernel wrapper (function, attribute) to the launches one replay makes."""
 
     def __init__(self, fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor], *,
-                 stream: torch.cuda.Stream, warm: bool = False,
+                 stream: torch.cuda.Stream, kind: str, warm: bool = False,
                  generator: torch.Generator | None = None, pool=None,
                  capture_error_mode: str = "global"):
-        t0 = time.perf_counter()
         device = inputs[0].device
         current = torch.cuda.current_stream(device)
         self.static = [x.detach().clone() for x in inputs]
@@ -82,31 +73,33 @@ class GraphedStep:
         self.first = None
         stream.wait_stream(current)
         if warm:
-            with torch.cuda.stream(stream):
+            with tracing.span(f"graph.warmup.{kind}"), torch.cuda.stream(stream):
                 self.first = fn(*self.static)
+                stream.synchronize()  # as the capture would, first thing
             current.wait_stream(stream)
             self.first.record_stream(current)  # read there, made here
         before = _read_counts()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode=capture_error_mode):
-            self.outputs = fn(*self.static)
+        with tracing.span(f"graph.capture.{kind}"):
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode=capture_error_mode):
+                self.outputs = fn(*self.static)
+        tracing.count(f"graph.captures.{kind}")
+        self._replays = f"graph.replays.{kind}"
         after = _read_counts()
         self.kernel_launches = {}
-        for (fn_, attr), b, a in zip(launch_counters(), before, after):
+        for (fn_, attr), b, a in zip(tracing.launch_counters(), before, after):
             setattr(fn_, attr, b)  # the capture launched nothing
             if a != b:
                 self.kernel_launches[fn_, attr] = a - b
-        self.replays = 0
-        self.capture_s = time.perf_counter() - t0
 
     def replay(self, *inputs: torch.Tensor):
         for buf, x in zip(self.static, inputs):
             buf.copy_(x, non_blocking=True)
         self.graph.replay()
-        self.replays += 1
+        tracing.count(self._replays)
         for (fn, attr), n in self.kernel_launches.items():
             setattr(fn, attr, getattr(fn, attr) + n)
         return self.outputs

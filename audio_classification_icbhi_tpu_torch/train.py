@@ -59,7 +59,9 @@ def parse_args(argv=None):
     parser.add_argument("--data-path", type=str, help="Override data.dataset_path")
     parser.add_argument("--resume", type=str, help="Checkpoint to resume from")
     parser.add_argument("--profile", type=str, metavar="DIR",
-                        help="Write a torch.profiler trace of the first epoch to DIR")
+                        help="Write a torch.profiler trace of the first epoch to DIR "
+                             "(trace.json), and the program's spans and counters so far "
+                             "beside it (spans.json)")
     parser.add_argument("--no-plots", action="store_true",
                         help="Skip the training-history PNG (no matplotlib needed)")
     parser.add_argument("--num-devices", type=int,

@@ -56,6 +56,22 @@ epoch trains as the sharded per-step path does. The cache is turned off,
 with the JAX trainer's message, only where the group spans several
 machines (`mesh.hosts > 1`), as the JAX trainer turns it off over several
 processes (`jax.process_count() > 1`).
+
+Tracing (`tracing.py`): the set-up runs in the span `trainer.init`, with
+children `trainer.frontend`, `trainer.cache` (the device caches, whose own
+spans are `cache.decode`, `cache.pcm16` and `cache.upload`),
+`trainer.model`, `trainer.optimizer`, `trainer.step_fns` and
+`trainer.writer`. A fused epoch runs in the span `fused_epoch`, whose
+children are `fused_epoch.prepare` (`set_epoch`, the rate, the epoch's
+index batches and labels), the spans of `train_many` (`train_many.upload`,
+`train_many.replays`), `fused_epoch.tail` and `fused_epoch.readback` (the
+one read of the epoch's metrics from the device, where the host waits for
+it), after which the recorder reads the train graph's device marks of the
+epoch's last replay; so `fused_epoch`'s self time is the host time its
+children leave out. Fused validation runs in `fused_val`, with children
+`fused_val.prepare`, the spans of `eval_many` and `fused_val.readback`.
+`train(profile_dir=)` writes the recorder's export, `spans.json`, beside
+the profiler's `trace.json`.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from audio_classification_icbhi_tpu_torch import tracing
 from audio_classification_icbhi_tpu_torch.data.device_cache import DeviceCachedLoader
 from audio_classification_icbhi_tpu_torch.data.loader import BatchLoader
 from audio_classification_icbhi_tpu_torch.models.registry import compute_dtype
@@ -130,6 +147,10 @@ class Trainer:
                  mesh: Mesh | None = None):
         """`mesh`: this rank's data mesh (its device replaces `device`), or
         None for one device."""
+        with tracing.span("trainer.init"):
+            self._set_up(model, train_dataset, val_dataset, config, device, mesh)
+
+    def _set_up(self, model, train_dataset, val_dataset, config, device, mesh) -> None:
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self.rank0 = mesh is None or mesh.rank == 0
@@ -157,7 +178,8 @@ class Trainer:
             raise ValueError(
                 f"batch_size {self.batch_size} must be divisible by the {n_dev}-rank data mesh")
 
-        self.frontend = MelFrontend.from_config(config)
+        with tracing.span("trainer.frontend"):
+            self.frontend = MelFrontend.from_config(config)
         self.class_weights = torch.as_tensor(self._calculate_class_weights(), device=self.device)
         dcfg = config["data"]
         self.cache_on_device = bool(dcfg.get("cache_on_device", False))
@@ -171,12 +193,14 @@ class Trainer:
         if self.cache_on_device:
             # decode once, keep the waveforms on the device, ship only indices
             cache_dtype = dcfg.get("cache_dtype", "auto")
-            self.train_loader = DeviceCachedLoader(
-                train_dataset, self.batch_size, device=self.device, shuffle=True,
-                drop_last=True, seed=self.seed, cache_dtype=cache_dtype, columns=self.columns)
-            self.val_loader = DeviceCachedLoader(val_dataset, self.batch_size, device=self.device,
-                                                 shuffle=False, cache_dtype=cache_dtype,
-                                                 columns=self.columns)
+            with tracing.span("trainer.cache"):
+                self.train_loader = DeviceCachedLoader(
+                    train_dataset, self.batch_size, device=self.device, shuffle=True,
+                    drop_last=True, seed=self.seed, cache_dtype=cache_dtype,
+                    columns=self.columns)
+                self.val_loader = DeviceCachedLoader(
+                    val_dataset, self.batch_size, device=self.device, shuffle=False,
+                    cache_dtype=cache_dtype, columns=self.columns)
             mb = (self.train_loader.nbytes + self.val_loader.nbytes) / 1e6
             print(f"Device cache: {mb:.0f} MB of waveforms resident on {self.device}")
         else:
@@ -187,43 +211,48 @@ class Trainer:
             self.val_loader = BatchLoader(val_dataset, self.batch_size, shuffle=False,
                                           shard=shard)
 
-        self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
-        if config["model"].get("pretrained", False):
-            self._load_pretrained()
-        self.model.to(self.device)
-        if mesh is not None:
-            replicate(mesh, self.model.state_dict().values())
+        with tracing.span("trainer.model"):
+            self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+            if config["model"].get("pretrained", False):
+                self._load_pretrained()
+            self.model.to(self.device)
+            if mesh is not None:
+                replicate(mesh, self.model.state_dict().values())
         self.optimizer_name = tcfg.get("optimizer", "adam")
-        # the fused epoch captures the optimizer step in a CUDA graph
-        self.optimizer = build_optimizer(
-            self.optimizer_name, self.model.named_parameters(), tcfg.get("weight_decay", 0.0),
-            capturable=self.cache_on_device and self.device.type == "cuda")
-        self.scheduler = build_scheduler(
-            tcfg.get("scheduler"), self.learning_rate, self.epochs,
-            plateau_mode=self.plateau_mode,
-            warmup_epochs=int(tcfg.get("warmup_epochs", 0)),
-        )
+        with tracing.span("trainer.optimizer"):
+            # the fused epoch captures the optimizer step in a CUDA graph
+            self.optimizer = build_optimizer(
+                self.optimizer_name, self.model.named_parameters(),
+                tcfg.get("weight_decay", 0.0),
+                capturable=self.cache_on_device and self.device.type == "cuda")
+            self.scheduler = build_scheduler(
+                tcfg.get("scheduler"), self.learning_rate, self.epochs,
+                plateau_mode=self.plateau_mode,
+                warmup_epochs=int(tcfg.get("warmup_epochs", 0)),
+            )
         self.dynamic_loss_scale = compute_dtype(config) == torch.float16
         # torch GradScaler's defaults: init scale 65,536, growth interval 2,000
         self.scale_state = (np.float32(65536.0), np.int32(0))
-        self.steps = make_step_fns(
-            self.model, self.frontend, self.optimizer,
-            accum_steps=self.accum_steps,
-            augment=bool(config["data"].get("augmentation", False))
-            and getattr(train_dataset, "augment", True),
-            max_grad_norm=self._max_grad_norm(),
-            accum_mode=tcfg.get("accum_mode", "parallel"),
-            mesh=mesh,
-            dynamic_loss_scale=self.dynamic_loss_scale,
-            seed=self.seed,
-        )
+        with tracing.span("trainer.step_fns"):
+            self.steps = make_step_fns(
+                self.model, self.frontend, self.optimizer,
+                accum_steps=self.accum_steps,
+                augment=bool(config["data"].get("augmentation", False))
+                and getattr(train_dataset, "augment", True),
+                max_grad_norm=self._max_grad_norm(),
+                accum_mode=tcfg.get("accum_mode", "parallel"),
+                mesh=mesh,
+                dynamic_loss_scale=self.dynamic_loss_scale,
+                seed=self.seed,
+            )
 
         self.checkpoint_dir = Path(tcfg.get("checkpoint_dir", "checkpoints"))
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self.async_checkpoint = bool(tcfg.get("async_checkpoint", True))
         self._ckpt_writer: AsyncCheckpointWriter | None = None
-        self.writer = SummaryWriter(log_dir=tcfg.get("log_dir", "runs")) if self.rank0 \
-            else _NoWriter()
+        with tracing.span("trainer.writer"):
+            self.writer = SummaryWriter(log_dir=tcfg.get("log_dir", "runs")) if self.rank0 \
+                else _NoWriter()
 
         self.history = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
         self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
@@ -337,18 +366,21 @@ class Trainer:
                               torch.cat(counts).sum()]).cpu().numpy()
         return float(packed[0]), 100.0 * float(packed[1]) / max(float(packed[2]), 1.0)
 
-    def _train_epoch_fused(self, epoch: int, lr: float) -> tuple[float, float]:
+    def _train_epoch_fused(self, epoch: int) -> tuple[float, float]:
         """The epoch's full accumulation groups through one `train_many`
         call against the device cache (the global indices: each rank takes
         its columns); the tail group through one `train_step` on this
         rank's columns. Step g draws from the generator the per-step path
         gives group g, so both paths train alike."""
         loader = self.train_loader
-        idxs = loader.epoch_index_batches()  # (S, B)
+        with tracing.span("fused_epoch.prepare"):
+            loader.set_epoch(epoch)
+            lr = float(self.scheduler.lr)
+            idxs = loader.epoch_index_batches()  # (S, B)
+            labels = loader.labels_all[idxs]
         s_total = idxs.shape[0]
         if s_total == 0:
             return 0.0, 0.0
-        labels = loader.labels_all[idxs]
         a, bsz = self.accum_steps, self.batch_size
         groups = s_total // a
         losses, corrects, counts = [], [], []
@@ -362,21 +394,26 @@ class Trainer:
             counts.append(m["count"])
         tail = s_total - groups * a
         if tail:
-            sl, own = slice(groups * a, s_total), self.columns
-            m = self.steps.train_step(
-                loader.gather(idxs[sl, own]),
-                self._to_device(labels[sl, own]).long(), self.class_weights, lr,
-                generator=self.step_generator(epoch, groups))
-            losses.append(m["loss"][None])
-            corrects.append(m["correct"][None])
-            counts.append(m["count"][None])
-        return self._epoch_summary(losses, corrects, counts)
+            with tracing.span("fused_epoch.tail"):
+                sl, own = slice(groups * a, s_total), self.columns
+                m = self.steps.train_step(
+                    loader.gather(idxs[sl, own]),
+                    self._to_device(labels[sl, own]).long(), self.class_weights, lr,
+                    generator=self.step_generator(epoch, groups))
+                losses.append(m["loss"][None])
+                corrects.append(m["correct"][None])
+                counts.append(m["count"][None])
+        with tracing.span("fused_epoch.readback"):
+            summary = self._epoch_summary(losses, corrects, counts)
+        tracing.read_marks()  # the read-back has synchronised
+        return summary
 
     def train_epoch(self, epoch: int) -> tuple[float, float]:
+        if self._use_multi_dispatch():
+            with tracing.span("fused_epoch"):
+                return self._train_epoch_fused(epoch)
         self.train_loader.set_epoch(epoch)
         lr = float(self.scheduler.lr)
-        if self._use_multi_dispatch():
-            return self._train_epoch_fused(epoch, lr)
         step_metrics = []
         for step_idx, (wavs, labels) in enumerate(self._grouped_batches(self.train_loader)):
             # on a mesh the loader decoded (or gathered from the cache) this
@@ -405,26 +442,28 @@ class Trainer:
         per-batch path. Over ranks each runs its columns and every rank
         gets the global sums and predictions, in loader order."""
         loader = self.val_loader
-        batches = loader._batch_indices()  # loader order: full batches, then the tail
-        if not batches:
-            if self.collect_predictions:
-                self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
-            return 0.0, 0.0
-        bsz = self.batch_size
-        counts = np.asarray([len(b) for b in batches])
-        idxs = np.zeros((len(batches), bsz), np.int64)
-        mask = np.zeros((len(batches), bsz), np.float32)
-        for i, bidx in enumerate(batches):
-            idxs[i, :len(bidx)] = bidx
-            mask[i, :len(bidx)] = 1.0
-        labels = loader.labels_all[idxs]  # pad rows' labels are masked out
+        with tracing.span("fused_val.prepare"):
+            batches = loader._batch_indices()  # loader order: full batches, then the tail
+            if not batches:
+                if self.collect_predictions:
+                    self.val_predictions = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+                return 0.0, 0.0
+            bsz = self.batch_size
+            counts = np.asarray([len(b) for b in batches])
+            idxs = np.zeros((len(batches), bsz), np.int64)
+            mask = np.zeros((len(batches), bsz), np.float32)
+            for i, bidx in enumerate(batches):
+                idxs[i, :len(bidx)] = bidx
+                mask[i, :len(bidx)] = 1.0
+            labels = loader.labels_all[idxs]  # pad rows' labels are masked out
         num, den, corr, pred = self.steps.eval_many(loader.cache, idxs, labels, mask,
                                                     self.class_weights)
-        packed = torch.stack([num, den, corr]).cpu().numpy()  # (3, S)
-        if self.collect_predictions:
-            real = mask.astype(bool)
-            self.val_predictions = (labels[real].astype(np.int64),
-                                    pred.cpu().numpy()[real].astype(np.int64))
+        with tracing.span("fused_val.readback"):
+            packed = torch.stack([num, den, corr]).cpu().numpy()  # (3, S)
+            if self.collect_predictions:
+                real = mask.astype(bool)
+                self.val_predictions = (labels[real].astype(np.int64),
+                                        pred.cpu().numpy()[real].astype(np.int64))
         val_loss = float(np.mean(packed[0] / np.maximum(packed[1], 1e-12)))
         return val_loss, 100.0 * float(packed[2].sum()) / max(float(counts.sum()), 1.0)
 
@@ -432,7 +471,8 @@ class Trainer:
         """One pass over the val loader; with collect_predictions the same
         pass records (y_true, y_pred) in self.val_predictions."""
         if self._use_fused_eval():
-            return self._validate_fused()
+            with tracing.span("fused_val"):
+                return self._validate_fused()
         sums, total = [], 0.0
         kept_preds, kept_labels = [], []
         for logits, num, den, corr, labels in eval_batches(
@@ -471,7 +511,8 @@ class Trainer:
 
     def train(self, resume_from: str | None = None, profile_dir: str | None = None) -> dict:
         """profile_dir writes a torch.profiler trace of the first trained
-        epoch there (`trace.json`, Chrome trace format)."""
+        epoch there (`trace.json`, Chrome trace format), and beside it the
+        recorder's spans and counters so far (`spans.json`)."""
         if resume_from:
             self.restore(resume_from)
         print(f"\nStarting training for {self.epochs} epochs...")
@@ -509,7 +550,8 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
-        print(f"✓ Profiler trace written to {Path(profile_dir) / 'trace.json'}")
+        spans = tracing.write(Path(profile_dir) / "spans.json")
+        print(f"✓ Profiler trace written to {Path(profile_dir) / 'trace.json'}, spans to {spans}")
         return out
 
     def _train_loop(self, profile_dir: str | None) -> None:

@@ -304,6 +304,7 @@ from audio_classification_icbhi_tpu_torch import diagnose_data
 from audio_classification_icbhi_tpu_torch import native
 from audio_classification_icbhi_tpu_torch import parity
 from audio_classification_icbhi_tpu_torch import preprocess_icbhi
+from audio_classification_icbhi_tpu_torch import tracing
 from audio_classification_icbhi_tpu_torch import train as train_entry
 from audio_classification_icbhi_tpu_torch import validate as validate_entry
 from audio_classification_icbhi_tpu_torch import validate_icbhi
@@ -362,7 +363,6 @@ from audio_classification_icbhi_tpu_torch.parallel.mesh import (
     get_mesh,
     init_distributed,
 )
-from audio_classification_icbhi_tpu_torch.parallel.step_graph import GraphedStep, launch_counters
 from audio_classification_icbhi_tpu_torch.step_floor import (
     FLOOR_SEEDS,
     param_arrays,
@@ -1578,8 +1578,26 @@ def conv_counts() -> dict[str, int]:
 
 
 def zero_counts() -> None:
-    for fn, attr in launch_counters():
+    for fn, attr in tracing.launch_counters():
         setattr(fn, attr, 0)
+    tracing.reset()
+
+
+def graph_count(what: str, kind: str) -> int:
+    """The recorder's count of graph `what` ("captures", "replays") of
+    `kind` since the last `zero_counts`."""
+    return tracing.counters().get(f"graph.{what}.{kind}", 0)
+
+
+def capture_ms() -> str:
+    """Each kind's warm-up and capture host ms since the last
+    `zero_counts`, from the recorder's spans."""
+    out = []
+    for kind in ("train", "eval"):
+        cap, warm = tracing.stat(f"graph.capture.{kind}"), tracing.stat(f"graph.warmup.{kind}")
+        if cap is not None:
+            out.append(f"{kind} {warm.total_ms if warm else 0.0:.1f} + {cap.total_ms:.1f} ms")
+    return ", ".join(out) or "none"
 
 
 # the epilogue's launches over every main-path run (`read_epilogue`)
@@ -4008,7 +4026,7 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
     model, opt = sgd_model()
     fns = make_step_fns(model, sgd["fe"], opt, accum_steps=a)
     zero_counts()
-    steps = []  # (lr, state before, metrics, params after, captures, graph, its replays)
+    steps = []  # (lr, state before, metrics, params after, captures, graph, replays so far)
     for lr in (1.0, 1.0, 0.5):
         before = ({k: v.detach().clone() for k, v in model.state_dict().items()},
                   copy.deepcopy(opt.state_dict()))
@@ -4016,21 +4034,22 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
                            labels.reshape(1, a, b), cw, lr, 0, 0)
         graph = fns.train_many.graphs["train"]
         steps.append((lr, before, {k: float(v[0]) for k, v in m.items()}, param_arrays(model),
-                      [kind for kind, _ in fns.train_many.captures], graph, graph.replays))
+                      graph_count("captures", "train"), graph,
+                      graph_count("replays", "train")))
     torch.cuda.synchronize()
     read_epilogue("phase 23 SGD steps")
     counts = (k16.launches, k16.launches_masked)
     per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in steps[0][5].kernel_launches.items()}
     print(f"phase 23: three lr-1/1/0.5 SGD steps through train_many: row-1 launches {counts[0]} "
           f"(the warm-up step's and two replays'), a replay's counted launches {per_replay}; "
-          f"captures after each call {[st[4] for st in steps]}, the graph's replays "
+          f"train captures after each call {[st[4] for st in steps]}, train replays "
           f"{[st[6] for st in steps]}")
     check(counts == (3, 0) and per_replay == {"log_mel_radix16dif_fused.launches": 1,
                                               "log_mel_epilogue.launches": 1},
           "the captured SGD step holds row 1 once, counted per replay")
-    check([st[4] for st in steps] == [["train"], ["train"], ["train", "train"]]
+    check([st[4] for st in steps] == [1, 1, 2]
           and steps[1][5] is steps[0][5] and steps[2][5] is not steps[0][5]
-          and [st[6] for st in steps] == [0, 1, 1],
+          and [st[6] for st in steps] == [0, 1, 2],
           "SGD: warm-up step, a replay, a re-capture at the new rate and its replay")
     launches["inference"] += counts[0]
     lr, _, m, got, *_ = steps[0]
@@ -4085,17 +4104,17 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
             if name != "radix16dif_fused"), f"steps_per_dispatch {spd} ran row 1, both forms")
         launches["inference"] += counts[0]
         launches["masked"] += counts[1]
-        caps = trainer.steps.train_many.captures
+        caps = {kind: graph_count("captures", kind) for kind in ("train", "eval")}
         if spd != 1:  # Adam reads its rate from the device: one capture of each for all epochs
-            check(sorted(kind for kind, _ in caps) == ["eval", "train"],
+            check(caps == {"train": 1, "eval": 1},
                   f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
         runs[spd] = dict(trainer=trainer, hist=hist, times=times, counts=counts, build_s=build_s)
         print(f"phase 23: [{card}] Trainer at config.yaml, cache on, steps_per_dispatch {spd} "
               f"({'per step' if spd == 1 else 'fused'}), {P23_EPOCHS} epochs of "
               f"{len(trainer.train_dataset)} / {len(trainer.val_dataset)} clips: train + "
               f"validate ms by epoch " + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
-              + f"; built in {build_s:.2f} s (the caches decoded); captures (warm-up "
-              f"included) " + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+              + f"; built in {build_s:.2f} s (the caches decoded); warm-up + capture "
+              + capture_ms()
               + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
               f"{counts[1]} masked (training)")
     for spd in (0,):
@@ -4114,7 +4133,7 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
         counted = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()}
         print(f"phase 23: the {what} graph ({tuple(graph.static[0].shape)} rows in): "
               f"{kernels} kernel nodes, {found}; counted a replay {counted}; replays over the "
-              f"{P23_EPOCHS} epochs {graph.replays}")
+              f"{P23_EPOCHS} epochs {graph_count('replays', what)}")
         check(all(n == 1 for n in found.values()), f"the {what} graph holds row 1 once")
         check(counted == {f"log_mel_radix16dif_fused.{form}": 1, "log_mel_epilogue.launches": 1},
               f"the {what} graph's row-1 form counted once a replay")
@@ -4671,14 +4690,16 @@ def phase26_fused_ranks(dev, card: str, tmp: Path, corpus: Path, sgd: dict,
         kinds = node_kinds(list_graph_nodes(graph.graph))
         print(f"phase 26: two lr-1 SGD steps through train_many on the NCCL group: collectives "
               f"called {steps[0][3]} in the first (the warm-up step, then the capture), "
-              f"{steps[1][3]} in the second (a replay); captures "
-              f"{[kind for kind, _ in fns.train_many.captures]}, replays {graph.replays}; row-1 "
+              f"{steps[1][3]} in the second (a replay); train captures "
+              f"{graph_count('captures', 'train')}, replays {graph_count('replays', 'train')}; "
+              f"row-1 "
               f"launches {k16.launches}; the graph's nodes by kind {json.dumps(kinds)}")
         check(sum(steps[0][3].values()) == 2 * COLLECTIVES_A_STEP
               and sum(steps[1][3].values()) == 0,
               "the warm-up and the capture each called the step's collectives; a replay none")
-        check((k16.launches, k16.launches_masked) == (2, 0) and graph.replays == 1
-              and [kind for kind, _ in fns.train_many.captures] == ["train"],
+        check((k16.launches, k16.launches_masked) == (2, 0)
+              and graph_count("replays", "train") == 1
+              and graph_count("captures", "train") == 1 and graph_count("captures", "eval") == 0,
               "the SGD steps on the group: the warm-up step and a replay")
         launches["inference"] += k16.launches
         _, m, got, _ = steps[0]
@@ -4728,8 +4749,8 @@ def phase26_fused_ranks(dev, card: str, tmp: Path, corpus: Path, sgd: dict,
                 if name != "radix16dif_fused"), f"steps_per_dispatch {spd} ran row 1, both forms")
             launches["inference"] += counts[0]
             launches["masked"] += counts[1]
-            caps = trainer.steps.train_many.captures
-            check(sorted(kind for kind, _ in caps) == (["eval", "train"] if spd != 1 else []),
+            caps = {kind: graph_count("captures", kind) for kind in ("train", "eval")}
+            check(caps == ({"train": 1, "eval": 1} if spd != 1 else {"train": 0, "eval": 0}),
                   f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
             runs[spd] = dict(trainer=trainer, hist=hist)
             print(f"phase 26: [{card}] Trainer at config.yaml on the world-size-1 NCCL group, "
@@ -4737,8 +4758,7 @@ def phase26_fused_ranks(dev, card: str, tmp: Path, corpus: Path, sgd: dict,
                   f"{P23_EPOCHS} epochs of {len(trainer.train_dataset)} / "
                   f"{len(trainer.val_dataset)} clips: train + validate ms by epoch "
                   + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
-                  + f"; built in {build_s:.2f} s; captures (warm-up included) "
-                  + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+                  + f"; built in {build_s:.2f} s; warm-up + capture " + capture_ms()
                   + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
                   f"{counts[1]} masked (training)")
         err = max(abs(x - y) / abs(y) for k in ("train_loss", "val_loss")
@@ -4962,7 +4982,6 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
     import yaml
 
     from audio_classification_icbhi_tpu_torch import train_icbhi, train_segmented
-    from audio_classification_icbhi_tpu_torch.parallel import data_parallel as dp_mod
     from audio_classification_icbhi_tpu_torch.training.trainer_icbhi import TrainerWithICBHI
 
     k16 = mel_kernels.log_mel_radix16dif_fused
@@ -5011,10 +5030,10 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
     per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()}
     print(f"phase 27: two lr-1 SGD steps of the full ResNet through train_many: row-1 launches "
           f"{k16.launches} (the warm-up step's and a replay's), a replay's counted launches "
-          f"{per_replay}; captures {[kind for kind, _ in fns.train_many.captures]}, replays "
-          f"{graph.replays}")
-    check((k16.launches, k16.launches_masked) == (2, 0) and graph.replays == 1
-          and [kind for kind, _ in fns.train_many.captures] == ["train"]
+          f"{per_replay}; train captures {graph_count('captures', 'train')}, replays "
+          f"{graph_count('replays', 'train')}")
+    check((k16.launches, k16.launches_masked) == (2, 0) and graph_count("replays", "train") == 1
+          and graph_count("captures", "train") == 1 and graph_count("captures", "eval") == 0
           and per_replay == {"log_mel_radix16dif_fused.launches": 1,
                              "log_mel_epilogue.launches": 1},
           "the ResNet SGD steps: the warm-up step and a replay, row 1 once a replay")
@@ -5069,16 +5088,15 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
         hist, times = train_epochs(trainer)
         read_epilogue(f"phase 27 ResNet trainer at steps_per_dispatch {spd}")
         counts = row1_only(f"the ResNet trainer at steps_per_dispatch {spd}")
-        caps = trainer.steps.train_many.captures
-        check(sorted(kind for kind, _ in caps) == (["eval", "train"] if spd != 1 else []),
+        caps = {kind: graph_count("captures", kind) for kind in ("train", "eval")}
+        check(caps == ({"train": 1, "eval": 1} if spd != 1 else {"train": 0, "eval": 0}),
               f"steps_per_dispatch {spd}: the step and the eval group captured once ({caps})")
         runs[spd] = dict(trainer=trainer, hist=hist, times=times)
         print(f"phase 27: [{card}] ResNet Trainer at config.yaml, cache on, steps_per_dispatch "
               f"{spd} ({'per step' if spd == 1 else 'fused'}), {P23_EPOCHS} epochs of "
               f"{len(trainer.train_dataset)} / {len(trainer.val_dataset)} clips: train + "
               f"validate ms by epoch " + ", ".join(f"{t:.1f} + {v:.1f}" for t, v in times)
-              + "; captures (warm-up included) "
-              + ", ".join(f"{kind} {sec * 1e3:.1f} ms" for kind, sec in caps)
+              + "; warm-up + capture " + capture_ms()
               + f"; history {json.dumps(hist)}; row-1 launches {counts[0]} (validation), "
               f"{counts[1]} masked (training)")
 
@@ -5097,6 +5115,7 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
     fused, per = runs[0]["trainer"], runs[1]["trainer"]
     train_graph = fused.steps.train_many.graphs["train"]
     eval_graph = fused.steps.eval_many.graphs["eval"]
+    replayed = {kind: graph_count("replays", kind) for kind in ("train", "eval")}
 
     # the eval graph against eager forwards of the same rows on the fused
     # run's last weights: one of the graph's G x 32 rows, and one a batch of
@@ -5147,7 +5166,7 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
         counted = {f"{fn.__name__}.{attr}": n for (fn, attr), n in g.kernel_launches.items()}
         print(f"phase 27: [{card}] the ResNet's {what} graph ({tuple(g.static[0].shape)} rows "
               f"in): nodes by kind {json.dumps(kinds)}, {found}; counted a replay {counted}; "
-              f"replays over the {P23_EPOCHS} epochs {g.replays}; its memory pool "
+              f"replays over the {P23_EPOCHS} epochs {replayed[what]}; its memory pool "
               f"{pool_mb(g.graph):.1f} MB")
         check(found == {stem: 1 for stem in RADIX8_STEMS}, f"the ResNet {what} graph holds row 1 "
                                                           f"once")
@@ -5193,8 +5212,8 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
     torch.cuda.empty_cache()
 
     # (c) train_segmented and train_icbhi at config_segmented.yaml on the
-    # cache, per step and fused, through the entry points; the graphs they
-    # capture are recorded
+    # cache, per step and fused, through the entry points; the recorder
+    # counts the graphs they capture and replay
     segmented = tmp / "icbhi_segmented"
     seg_config = str(REPO / "config_segmented.yaml")
 
@@ -5209,34 +5228,25 @@ def phase27_resnet_fused(dev, card: str, tmp: Path, corpus: Path, sgd: dict) -> 
         return ["--config", str(path), "--data-path", str(segmented),
                 "--epochs", str(P23_EPOCHS), "--no-plots"]
 
-    class Recorded(GraphedStep):
-        """GraphedStep, each capture kept in `made` until read."""
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            made.append(self)
-
     for entry, trainer_cls in ((train_segmented, Trainer), (train_icbhi, TrainerWithICBHI)):
         name = entry.__name__.rsplit(".", 1)[-1]
         seg = {}
         for spd in (1, 0):
-            made: list[GraphedStep] = []
             zero_counts()
-            dp_mod.GraphedStep = Recorded
-            try:
-                t0 = time.perf_counter()
-                hist = quiet(entry.main, seg_argv(spd, f"{name}{spd}"))
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                dp_mod.GraphedStep = GraphedStep
+            t0 = time.perf_counter()
+            hist = quiet(entry.main, seg_argv(spd, f"{name}{spd}"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             read_epilogue(f"phase 27 {name} at steps_per_dispatch {spd}")
             counts = row1_only(f"{name} at steps_per_dispatch {spd}")
-            replays = [g.replays for g in made]
-            made.clear()  # the trainer is gone: its graphs are not replayed again
-            check(len(replays) == (2 if spd != 1 else 0) and all(n > 0 for n in replays),
-                  f"{name} at steps_per_dispatch {spd}: captures {len(replays)}, replays "
-                  f"{replays}")
+            # fused: the step and the eval group captured once for all
+            # epochs, and each replayed; per step: no graph
+            caps = {kind: graph_count("captures", kind) for kind in ("train", "eval")}
+            replays = [graph_count("replays", kind) for kind in ("train", "eval")]
+            check(caps == ({"train": 1, "eval": 1} if spd != 1 else {"train": 0, "eval": 0})
+                  and all((n > 0) == (spd != 1) for n in replays),
+                  f"{name} at steps_per_dispatch {spd}: captures {caps}, replays "
+                  f"(train, eval) {replays}")
             check(all(math.isfinite(v) for vals in hist.values() for v in vals),
                   "finite history")
             seg[spd] = hist

@@ -1,0 +1,16 @@
+"""Device ms of the replayed train step's forwards and losses, summed over its
+microbatches, between the program's marks in the graph, the median over the
+epochs' last replays (`step.forward`); nothing where the program records
+none."""
+
+import importlib
+import statistics
+
+
+def read(run, outcome):
+    try:
+        tracing = importlib.import_module("audio_classification_icbhi_tpu_torch.tracing")
+    except ImportError:
+        return None
+    s = tracing.stat("step.forward")
+    return statistics.median(s.ring) if s is not None and s.ring else None
