@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audio_classification_icbhi_tpu_torch.ops.conv_epilogue import conv_epilogue
+
 
 def _conv_init(weight: torch.Tensor, generator: torch.Generator | None) -> None:
     """He normal, fan_out, untruncated (torch kaiming_normal_ mode=fan_out)."""
@@ -60,6 +62,12 @@ def init_weights(model: nn.Module, generator: torch.Generator | None = None) -> 
             m.reset_parameters()
 
 
+def keep_mask(shape, p: float, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """The keep mask of dropout at rate p, drawn from `generator`."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
             per_channel: bool = False) -> torch.Tensor:
     """Inverted dropout with its mask drawn from `generator` (on x's
@@ -67,8 +75,7 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     (sample, channel) of an NCHW tensor."""
     if p == 0.0:
         return x
-    shape = x.shape[:2] + (1, 1) if per_channel else x.shape
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    keep = keep_mask(x.shape[:2] + (1, 1) if per_channel else x.shape, p, generator, x.device)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -222,7 +229,13 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class ConvBlock(nn.Module):
-    """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> channel dropout."""
+    """Conv3x3 (no bias) -> BatchNorm -> ReLU -> MaxPool2 -> channel dropout.
+
+    On the card, everything after the convolution is one hand-written kernel
+    pair (`ops/conv_epilogue.py`), in train mode without a process group and
+    in eval mode; the dropout mask is drawn by the same generator call as the
+    chain's. The cross-rank BatchNorm (train mode with a group) and every CPU
+    tensor run the chain of torch ops."""
 
     def __init__(self, in_channels: int, out_channels: int, drop_rate: float = 0.2,
                  dtype: torch.dtype = torch.float32, axis_name=None):
@@ -233,8 +246,16 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm(out_channels, group=axis_name)
         self.pool = nn.MaxPool2d(2)  # floors odd sizes, as flax max_pool does
 
+    def epilogue_engages(self, x) -> bool:
+        """Whether the conv output x takes the kernel pair (class doc)."""
+        return x.is_cuda and not (self.training and self.bn.group is not None)
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), padding=1)
+        if self.epilogue_engages(x):
+            p = self.drop_rate if self.training else 0.0
+            keep = keep_mask(x.shape[:2] + (1, 1), p, generator, x.device) if p else None
+            return conv_epilogue(x, self.bn, keep, p)
         x = self.pool(F.relu(self.bn(x)))
         if self.training:
             x = dropout(x, self.drop_rate, generator, per_channel=True)

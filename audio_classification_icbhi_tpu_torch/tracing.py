@@ -191,7 +191,7 @@ def count(name: str, n: int = 1) -> None:
 
 def launch_counters() -> list[tuple[object, str]]:
     """(function, attribute) of every launch count the kernel wrappers keep."""
-    from audio_classification_icbhi_tpu_torch.ops import conv_kernels, mel_kernels
+    from audio_classification_icbhi_tpu_torch.ops import conv_epilogue, conv_kernels, mel_kernels
 
     out = [(fn, attr) for fn in mel_kernels.WRAPPERS.values()
            for attr in ("launches", "launches_masked")]
@@ -200,6 +200,7 @@ def launch_counters() -> list[tuple[object, str]]:
                                         conv_kernels.fused_conv_block1_batched,
                                         conv_kernels.fused_conv_block2,
                                         conv_kernels.fused_conv_block3)]
+    out += [(conv_epilogue.conv_epilogue, attr) for attr in ("launches", "launches_backward")]
     return out
 
 

@@ -259,6 +259,17 @@ toolkit. Phases:
    config_segmented.yaml with the cache on at steps_per_dispatch 1 and 0 for
    3 epochs on phase 21's segmented corpus (their graphs' replays counted),
    the histories held alike. Its row-1 launches add to the kernels line.
+28. the ConvBlock epilogue (`ops/conv_epilogue.py`, `csrc/conv_epilogue.cu`:
+   BatchNorm -> ReLU -> MaxPool2 -> channel dropout after each convolution,
+   forward and backward) at each block's conv output of 8 s clips and 3 s
+   cycles x 32 and 128 rows, in bf16, fp16 and f32: the batch and running
+   statistics, Apply, and the backward against their plain versions, and
+   beside today's chain of torch ops, with the tolerances its doc states;
+   eval mode; two calls bit-equal; refused inputs; one fused epoch and its
+   validation of `Trainer` at config.yaml with the launch counts read around
+   it; each block's pair timed eager and as a CUDA graph beside its bytes
+   bound, the plain version and the chain of torch ops (the kernels line's
+   `conv_epilogue` row).
 
 Every failed check raises, and the script exits non-zero without printing a
 result. The line before the last lists the kernels as JSON; the last line is
@@ -275,6 +286,11 @@ checkout unpacked in DIR beside this one's instead (`compare_parent`,
 builds the kernels and runs phase 27 alone, on phase 9's and phase 21's
 corpora and phase 20's ResNet SGD step (`phase27_alone`; about two minutes
 on one H100).
+
+    python3 chip_smoke.py --phase28
+
+builds the kernels and runs phase 28 alone on a corpus of 460 recordings
+(`phase28_alone`; about a minute on one H100).
 """
 
 from __future__ import annotations
@@ -334,13 +350,14 @@ from audio_classification_icbhi_tpu_torch.models import (
     make_fused_apply,
 )
 from audio_classification_icbhi_tpu_torch.models import fused_infer
-from audio_classification_icbhi_tpu_torch.models.cnn import BatchNorm
+from audio_classification_icbhi_tpu_torch.models.cnn import BatchNorm, keep_mask
 from audio_classification_icbhi_tpu_torch.models.weights import (
     flax_from_state_dict,
     optax_from_opt_state,
     state_dict_from_flax,
 )
 from audio_classification_icbhi_tpu_torch.ops import _build, mel_kernels
+from audio_classification_icbhi_tpu_torch.ops import conv_epilogue as ce
 from audio_classification_icbhi_tpu_torch.ops import conv_kernels as ck
 from audio_classification_icbhi_tpu_torch.ops import augment as aug
 from audio_classification_icbhi_tpu_torch.ops.golden import golden_mel, parity_battery
@@ -774,6 +791,7 @@ def main() -> int:
         orbax = phase25_orbax(dev, rng, card, Path(tmp), corpus)
         ranks = phase26_fused_ranks(dev, card, Path(tmp), corpus, sgd_step, fused)
         resnet_fused = phase27_resnet_fused(dev, card, Path(tmp), corpus, resnet["sgd"])
+        conv_epilogue_row = phase28_conv_epilogue(dev, card, Path(tmp), corpus)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -819,7 +837,10 @@ def main() -> int:
             **{k: conv_rows[name][k] for k in (*serving, "graph_ms")}}
            for name, (source, line, _) in CONV_ROWS.items()]
         + [{"name": "log_mel_epilogue", "route": "cuda", "source": csrc + "log_mel_epilogue.cuh",
-            "replaces": pallas_mel + ":683", **{k: epilogue[k] for k in (*serving, "graph_ms")}}]}))
+            "replaces": pallas_mel + ":683", **{k: epilogue[k] for k in (*serving, "graph_ms")}}]
+        + [{"name": "conv_epilogue", "route": "cuda", "source": csrc + "conv_epilogue.cu",
+            "replaces": "none (flax BatchNorm, ReLU, max_pool, Dropout under XLA)",
+            **{k: conv_epilogue_row[k] for k in (*serving, "graph_ms")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -4045,8 +4066,10 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
           f"train captures after each call {[st[4] for st in steps]}, train replays "
           f"{[st[6] for st in steps]}")
     check(counts == (3, 0) and per_replay == {"log_mel_radix16dif_fused.launches": 1,
-                                              "log_mel_epilogue.launches": 1},
-          "the captured SGD step holds row 1 once, counted per replay")
+                                              "log_mel_epilogue.launches": 1,
+                                              **conv_epilogue_counts(a, backward=True)},
+          "the captured SGD step holds row 1 once and the ConvBlock epilogue once a block and "
+          "microbatch, counted per replay")
     check([st[4] for st in steps] == [1, 1, 2]
           and steps[1][5] is steps[0][5] and steps[2][5] is not steps[0][5]
           and [st[6] for st in steps] == [0, 1, 2],
@@ -4135,8 +4158,9 @@ def phase23_fused_epoch(dev, rng, card: str, tmp: Path, corpus: Path,
               f"{kernels} kernel nodes, {found}; counted a replay {counted}; replays over the "
               f"{P23_EPOCHS} epochs {graph_count('replays', what)}")
         check(all(n == 1 for n in found.values()), f"the {what} graph holds row 1 once")
-        check(counted == {f"log_mel_radix16dif_fused.{form}": 1, "log_mel_epilogue.launches": 1},
-              f"the {what} graph's row-1 form counted once a replay")
+        check(counted == {f"log_mel_radix16dif_fused.{form}": 1, "log_mel_epilogue.launches": 1,
+                          **conv_epilogue_counts(*((2, True) if what == "train" else (1, False)))},
+              f"the {what} graph's row-1 form and ConvBlock epilogues counted once a replay")
 
     # (c) the numbers
     tl_ = fused.train_loader
@@ -5302,10 +5326,316 @@ def phase27_alone() -> int:
     return 0
 
 
+# phase 28: the ConvBlock epilogue (`ops/conv_epilogue.py`,
+# `csrc/conv_epilogue.cu`): BatchNorm -> ReLU -> MaxPool2 -> channel dropout
+# after each of LightweightCNN's convolutions, forward and backward
+
+# each block's conv output (C, H, W) at config.yaml's 8 s clips (251
+# frames) and config_segmented.yaml's 3 s cycles (94 frames)
+EPILOGUE_BLOCKS = {"8 s": ((32, 128, 251), (64, 64, 125), (128, 32, 62), (256, 16, 31),
+                           (256, 8, 15)),
+                   "3 s": ((32, 128, 94), (64, 64, 47), (128, 32, 23), (256, 16, 11),
+                           (256, 8, 5))}
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+P28_DROP = 0.2  # config.yaml's block dropout
+
+
+def conv_epilogue_counts(microbatches: int, backward: bool) -> dict[str, int]:
+    """The ConvBlock epilogue's counted launches in one LightweightCNN step of
+    `microbatches` forwards: one a block each, and as many backward."""
+    out = {"conv_epilogue.launches": 5 * microbatches}
+    if backward:
+        out["conv_epilogue.launches_backward"] = 5 * microbatches
+    return out
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, floor: float) -> torch.Tensor:
+    """|got - want| in units of one ulp of `dtype` at the larger magnitude,
+    plus `floor` x max |want| (absolute: near 0, where ReLU's edge or a sum's
+    cancellation leaves values far below the tensor's scale)."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - MANTISSA_BITS[dtype])
+    return (got - want).abs() / (ulp + floor * want.abs().max())
+
+
+def epilogue_inputs(c: int, h: int, w: int, rows: int, dtype: torch.dtype, seed: int, dev):
+    """A conv output y (rows, c, h, w) channels-last in dtype (per-channel
+    scales and offsets; a band of 6 frames constant in time, as SpecAugment's
+    zeroed band comes out of the convolution, so windows tie), a BatchNorm
+    with its affine and running statistics away from their init, and the
+    dropout mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((rows, h, w, c), generator=g, device=dev)
+    y = y * (0.5 + torch.rand(c, generator=g, device=dev)) + torch.randn(c, generator=g,
+                                                                         device=dev)
+    y[:, :, w // 3:w // 3 + 6, :] = y[:, :, w // 3:w // 3 + 1, :].clone()
+    y = y.to(dtype).permute(0, 3, 1, 2)
+    bn = BatchNorm(c).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=g, device=dev))
+        bn.bias.copy_(0.2 * torch.randn(c, generator=g, device=dev))
+        bn.running_mean.copy_(0.1 * torch.randn(c, generator=g, device=dev))
+        bn.running_var.copy_(0.5 + torch.rand(c, generator=g, device=dev))
+    keep = keep_mask((rows, c, 1, 1), P28_DROP, g, dev)
+    return y, bn, keep
+
+
+def epilogue_chain(y: torch.Tensor, bn: BatchNorm, keep: torch.Tensor) -> torch.Tensor:
+    """The chain of torch ops the kernels replace on the card (ConvBlock's
+    CPU code): the library yardstick."""
+    x = F.max_pool2d(F.relu(bn(y)), 2)
+    return torch.where(keep, x / (1.0 - P28_DROP), torch.zeros((), dtype=x.dtype,
+                                                               device=x.device))
+
+
+def epilogue_bound_ms(y: torch.Tensor) -> float:
+    """Least time for one forward and backward: y read once, the pooled
+    output and its code byte written once (forward); g and the code read,
+    y read and dx written once (backward); over HBM bandwidth."""
+    n, s = y.numel(), y.element_size()
+    return (2 * (n * s + n // 4 * s + n // 4) + n * s) / HBM_BYTES_PER_S * 1e3
+
+
+def epilogue_case(y: torch.Tensor, bn: BatchNorm, keep: torch.Tensor, dtype: torch.dtype,
+                  seed: int, what: str) -> tuple[float, str]:
+    """Phase 28's checks (a)-(e) at one input (its doc): the largest |out -
+    plain out| and a summary."""
+    import copy
+
+    bn_c = copy.deepcopy(bn)
+    rm0, rv0 = bn.running_mean.clone(), bn.running_var.clone()
+    scale = ce.keep_scale(P28_DROP)
+    wide = dtype != torch.float32
+    with torch.no_grad():  # the kernels and their plain versions: no autograd graph
+        out, code, mean, var = ce.epilogue_forward(y, bn.weight, bn.bias, bn, keep, scale, True)
+        mean_p, var_p = ce.batch_stats_reference(y)
+        d_mean = ((mean - mean_p).abs() / var_p.sqrt()).max().item()
+        d_var = ((var - var_p).abs() / var_p).max().item()
+        rm, rv = 0.9 * rm0 + 0.1 * mean_p, 0.9 * rv0 + 0.1 * var_p
+        d_run = max(((bn.running_mean - rm).abs() / rv.sqrt()).max().item(),
+                    ((bn.running_var - rv).abs() / rv).max().item())
+        check(d_mean <= 1e-5 and d_var <= 1e-5 and d_run <= 1e-5
+              and int(bn.num_batches_tracked) == 1,
+              f"statistics at {what}: mean {d_mean:.2e}, var {d_var:.2e}, running {d_run:.2e}")
+        out_p, code_p = ce.apply_reference(y, mean, var, bn.weight, bn.bias, bn.eps, keep, scale)
+        u_out = ulps(out, out_p, dtype, 2.0 ** -20).max().item()
+        ne_out = (out != out_p).float().mean().item()
+        ne_code = (code != code_p).float().mean().item()
+        check(u_out <= 2 and (ne_out <= 1e-2 or not wide) and ne_code <= 1e-2,
+              f"Apply at {what}: {u_out:.2f} ulps, {ne_out:.2e} not equal, code {ne_code:.2e}")
+        # a pooled gradient of one sign mostly, so that the sums compared
+        # are not a cancellation's remainder
+        gen = torch.Generator(device=y.device).manual_seed(seed)
+        g = (1.0 + 0.5 * torch.randn(out.shape, generator=gen, device=y.device)).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        dx, gw, gb = ce.epilogue_backward(g, y, code, mean, var, bn.weight, bn.eps, scale, True)
+        dx_p, gw_p, gb_p = ce.grad_reference(g, y, code, mean, var, bn.weight, bn.eps, scale,
+                                             True)
+        u_dx = ulps(dx, dx_p, dtype, 1e-5).max().item()
+        d_par = max(((gw - gw_p).abs().max() / gw_p.abs().max()).item(),
+                    ((gb - gb_p).abs().max() / gb_p.abs().max()).item())
+        check(u_dx <= 1 and d_par <= 1e-4, f"backward at {what}: dx {u_dx:.2f} ulps, parameter "
+                                           f"gradients {d_par:.2e}")
+        bn.eval()
+        out_e = ce.conv_epilogue(y, bn)
+        out_ep, _ = ce.apply_reference(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                       bn.eps)
+        u_eval = ulps(out_e, out_ep, dtype, 2.0 ** -20).max().item()
+        check(u_eval <= 1, f"eval at {what}: {u_eval:.2f} ulps")
+    yc = y.detach().clone().requires_grad_()
+    out_c = epilogue_chain(yc, bn_c, keep)
+    out_c.backward(g)
+    u_chain = ulps(out, out_c, dtype, 2.0 ** -20).max().item()
+    ne_chain = (out != out_c).float().mean().item()
+    d_par_c = max(((gw - bn_c.weight.grad).abs().max() / bn_c.weight.grad.abs().max()).item(),
+                  ((gb - bn_c.bias.grad).abs().max() / bn_c.bias.grad.abs().max()).item())
+    dx_in = (ulps(dx, yc.grad, dtype, 1e-3) <= 2).float().mean().item()
+    check(u_chain <= 2 and (ne_chain <= 1e-2 or not wide) and d_par_c <= 1e-3
+          and dx_in >= 0.999,
+          f"against the chain at {what}: out {u_chain:.2f} ulps, {ne_chain:.2e} not equal; "
+          f"parameter gradients {d_par_c:.2e}; dx within 2 ulps in {dx_in:.5f}")
+    said = (f"stats {d_mean:.1e}/{d_var:.1e} out {u_out:.2f}u {ne_out:.1e} code {ne_code:.1e} "
+            f"dx {u_dx:.2f}u par {d_par:.1e} eval {u_eval:.2f}u | chain {u_chain:.2f}u "
+            f"{ne_chain:.1e} par {d_par_c:.1e} dx {dx_in:.5f}")
+    return (out.float() - out_p.float()).abs().max().item(), said
+
+
+def phase28_conv_epilogue(dev, card: str, tmp: Path, corpus: Path) -> dict:
+    """The ConvBlock epilogue's kernels against their plain versions on the
+    card, at each block's conv output of 8 s clips and 3 s cycles (tables
+    above) x 32 and 128 rows, in bf16, fp16 and f32, train mode with
+    dropout 0.2:
+    (a) the batch statistics against `batch_stats_reference` (mean within
+    1e-5 of the std, var within 1e-5 relative: f32 sums in another order)
+    and the running statistics moved flax's way from them, within 1e-5;
+    (b) Apply against `apply_reference` on the kernels' own statistics: the
+    output within 2 ulps of the dtype (the kernel's fma against torch's
+    multiply-then-add moves the f32 value by an f32 ulp, which moves the
+    rounded value by one ulp of the dtype where it sits on a rounding edge;
+    the dropout's x1.25 takes that one ulp to at most two), not bit-equal in
+    at most 1 % of outputs in bf16 and fp16, the code different in at most
+    1 % (near-ties the same ulp moves); (c) the backward against
+    `grad_reference` on the kernels' own code and statistics: dx within one
+    ulp of the dtype plus 1e-5 of max |dx| (f32 sums in another order), the
+    weight and bias gradients within 1e-4 of their largest; (d) today's
+    chain of torch ops (ConvBlock's CPU code) beside them on the card: the
+    output within 2 ulps, not bit-equal in at most 1 % in bf16 and fp16,
+    the parameter gradients within 1e-3 of their largest, dx within 2 ulps
+    plus 1e-3 of max |dx| in at least 99.9 % of elements (a winner that a
+    one-ulp difference moves routes a whole window's gradient elsewhere);
+    (e) eval mode (the running statistics, no dropout, no code) against
+    `apply_reference` within one ulp; two forward and two backward calls
+    bit-equal (block 1); inputs the kernels do not take raise. Then (f) one
+    fused epoch and its validation of `Trainer` at config.yaml (cache on)
+    on phase 23's clips, with the launch counts zeroed before and read
+    after: 5 forward launches a microbatch and eval forward, 5 backward a
+    microbatch, the train graph's replay counting 10 and 10; (g) each
+    block's pair at 32 rows of 8 s in bf16 timed forward and backward by
+    CUDA events, as a CUDA graph of 20 calls, beside its bytes bound, the
+    plain version and the chain of torch ops (`library_ms`). Returns the
+    kernels line's row."""
+    import copy
+
+    errs = []
+    for frames, blocks in EPILOGUE_BLOCKS.items():
+        for rows in (32, 128):
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                line = []
+                for i, (c, h, w) in enumerate(blocks):
+                    y, bn, keep = epilogue_inputs(c, h, w, rows, dtype, 28 + i, dev)
+                    what = f"{frames} block {i + 1} x {rows} {dtype}"
+                    err, said = epilogue_case(y, bn, keep, dtype, 280 + i, what)
+                    errs.append(err)
+                    line.append(f"b{i + 1} {said}")
+                print(f"phase 28: {frames} x {rows} {str(dtype).removeprefix('torch.')}: "
+                      + "; ".join(line))
+
+    # (e) two calls bit-equal; what the kernels do not take raises
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        y, bn, keep = epilogue_inputs(*EPILOGUE_BLOCKS["8 s"][0], 32, dtype, 29, dev)
+        runs = []
+        for _ in range(2):
+            b2 = copy.deepcopy(bn)
+            out, code, mean, var = ce.epilogue_forward(y, b2.weight, b2.bias, b2, keep,
+                                                      ce.keep_scale(P28_DROP), True)
+            g = torch.ones_like(out)
+            runs.append((out, code, mean, var, *ce.epilogue_backward(
+                g, y, code, mean, var, b2.weight, b2.eps, ce.keep_scale(P28_DROP), True)))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)), f"two calls bit-equal in {dtype}")
+    y, bn, keep = epilogue_inputs(32, 8, 8, 2, torch.bfloat16, 30, dev)
+    for bad, what, exc in ((y.double(), "f64", TypeError),
+                           (y[:, :24], "24 channels", ValueError),
+                           (y[:, :, :1], "one row", RuntimeError)):
+        try:
+            ce.conv_epilogue(bad, BatchNorm(bad.shape[1]).to(dev))
+        except exc:
+            continue
+        check(False, f"conv_epilogue refuses {what}")
+    print("phase 28: two forward and backward calls bit-equal in bf16, fp16, f32; f64, 24 "
+          "channels and a map that pools to nothing raise")
+
+    # (f) the main path: one fused epoch and its validation
+    cfg = p23_config(corpus)
+    cfg["training"].update(checkpoint_dir=str(tmp / "p28" / "ckpt"),
+                           log_dir=str(tmp / "p28" / "runs"))
+    zero_counts()
+    trainer = quiet(Trainer, build_model(cfg), *p23_datasets(corpus, cfg), cfg, device="cuda")
+    trainer.train_epoch(0)
+    trainer.validate(0)
+    torch.cuda.synchronize()
+    steps = trainer.train_loader.epoch_index_batches().shape[0]
+    groups = math.ceil(len(trainer.val_loader._batch_indices())
+                       / max(1, 128 // trainer.batch_size))
+    got = (ce.conv_epilogue.launches, ce.conv_epilogue.launches_backward)
+    want = (5 * (steps + groups), 5 * steps)
+    graph = trainer.steps.train_many.graphs["train"]
+    per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()
+                  if fn is ce.conv_epilogue}
+    print(f"phase 28: one fused epoch of {len(trainer.train_dataset)} clips ({steps} batches) "
+          f"and its validation ({groups} eval groups): conv_epilogue launches {got} (expected "
+          f"{want}), a train replay counts {per_replay}; {json.dumps(tracing.counters())}")
+    check(got == want and per_replay == conv_epilogue_counts(2, backward=True),
+          "the main path went through the ConvBlock epilogue, 5 blocks x 2 microbatches a step")
+    main_path = got[0] + got[1]
+    del trainer
+
+    # (g) timings at the main path's shapes: 32 rows of 8 s, bf16, train mode
+    total = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for i, (c, h, w) in enumerate(EPILOGUE_BLOCKS["8 s"]):
+        y, bn, keep = epilogue_inputs(c, h, w, 32, torch.bfloat16, 40 + i, dev)
+        scale = ce.keep_scale(P28_DROP)
+        out, code, mean, var = ce.epilogue_forward(y, bn.weight, bn.bias, bn, keep, scale, True)
+        g = torch.randn_like(out.float()).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+        def fwd():
+            ce.epilogue_forward(y, bn.weight, bn.bias, bn, keep, scale, True)
+
+        def bwd():
+            ce.epilogue_backward(g, y, code, mean, var, bn.weight, bn.eps, scale, True)
+
+        def pair():
+            fwd()
+            bwd()
+
+        @torch.no_grad()
+        def plain():
+            m, v = ce.batch_stats_reference(y)
+            ce.apply_reference(y, m, v, bn.weight, bn.bias, bn.eps, keep, scale)
+            ce.grad_reference(g, y, code, m, v, bn.weight, bn.eps, scale, True)
+
+        bn_c = copy.deepcopy(bn)
+        yc = y.detach().clone().requires_grad_()
+
+        def library():
+            epilogue_chain(yc, bn_c, keep).backward(g)
+
+        fwd_ms, bwd_ms = cuda_ms(fwd, 50), cuda_ms(bwd, 50)
+        row = {"ms": fwd_ms + bwd_ms, "graph_ms": graph_ms(pair), "plain_ms": cuda_ms(plain, 10),
+               "bound_ms": epilogue_bound_ms(y), "library_ms": cuda_ms(library, 20)}
+        for k in total:
+            total[k] += row[k]
+        print(f"phase 28: [{card}] block {i + 1} ({c} x {h} x {w}, 32 rows, bf16): forward "
+              f"{fwd_ms:.4f} + backward {bwd_ms:.4f} ms, CUDA graph {row['graph_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms (bytes), plain {row['plain_ms']:.4f} ms, "
+              f"chain of torch ops {row['library_ms']:.4f} ms")
+    print(f"phase 28: [{card}] the five blocks, 32 rows of 8 s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
+    return {**total, "launches": main_path, "max_abs_err": max(errs), "bound_by": "bytes"}
+
+
+def phase28_alone() -> int:
+    """`python3 chip_smoke.py --phase28`: the build, a corpus of phase 23's
+    size and phase 28, without the other phases. Exits non-zero on any
+    failed check."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"{card}; torch {torch.__version__}; CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, (path, log) in _build.build_all().items():
+        if name == "conv_epilogue":
+            print(f"phase 2: {name} -> {path}\n{log.strip()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        corpus = generate_icbhi_dataset(tmp / "corpus", num_recordings=460, seed=0)
+        row = phase28_conv_epilogue(dev, card, tmp, corpus)
+    print(json.dumps({"conv_epilogue": row}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         sys.exit(compare_parent(Path(sys.argv[2])))
     if sys.argv[1:] == ["--phase27"]:
         sys.exit(phase27_alone())
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR | --phase27]")
+    if sys.argv[1:] == ["--phase28"]:
+        sys.exit(phase28_alone())
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR | --phase27 | --phase28]")
     sys.exit(main())
