@@ -17,7 +17,8 @@ drives through the window's own call):
   gradient itself; grad1_output_gap: the same of the output layer's
   weight;
 - stats3_gap, stats3_median_gap: the same two for the change of each
-  BatchNorm running mean and variance after three steps;
+  BatchNorm running mean and variance after three steps, where the model
+  has running statistics (absent, not NaN, where it has none);
 - val_batch_gap: the root mean square over the validation batches of each
   batch's relative loss gap, at the initial weights.
 """
@@ -91,8 +92,9 @@ def train_numbers(program: dict, reference: dict) -> dict[str, float]:
     """program and reference: {"losses": [3], "grad1": {leaf: norm},
     "grad1_tensors": {leaf: tensor}, "change": {leaf: norm}, "stats":
     {running statistic: norm of its change}, "val_losses": [one a
-    validation batch]}."""
-    return {
+    validation batch]}. The stats3 numbers only where the reference has
+    running statistics."""
+    numbers = {
         "loss1_gap": rel_gap(program["losses"][0], reference["losses"][0]),
         "loss_gap": max(rel_gap(p, r) for p, r in zip(program["losses"], reference["losses"])),
         "grad1_gap": leaf_gap(program["grad1"], reference["grad1"]),
@@ -104,11 +106,13 @@ def train_numbers(program: dict, reference: dict) -> dict[str, float]:
         "grad1_output_gap": output_gap(program["grad1_tensors"], reference["grad1_tensors"]),
         "update3_median_gap": median_leaf_gap(program["change"], reference["change"],
                                               moving_leaves(reference["grad1"])),
-        "stats3_gap": leaf_gap(program["stats"], reference["stats"]),
-        "stats3_median_gap": median_leaf_gap(program["stats"], reference["stats"]),
-        "val_batch_gap": float(np.sqrt(np.mean([
-            rel_gap(p, r) ** 2 for p, r in zip(program["val_losses"], reference["val_losses"])]))),
     }
+    if reference["stats"]:
+        numbers["stats3_gap"] = leaf_gap(program["stats"], reference["stats"])
+        numbers["stats3_median_gap"] = median_leaf_gap(program["stats"], reference["stats"])
+    numbers["val_batch_gap"] = float(np.sqrt(np.mean([
+        rel_gap(p, r) ** 2 for p, r in zip(program["val_losses"], reference["val_losses"])])))
+    return numbers
 
 
 def train_detail(program: dict, reference: dict, top: int = 3) -> dict:
@@ -121,8 +125,10 @@ def train_detail(program: dict, reference: dict, top: int = 3) -> dict:
         return sorted(([k, g, program[key][k], ref[k]] for k, g in gaps.items()),
                       key=lambda x: -x[1])[:top]
 
-    return {"step_loss_gaps": [rel_gap(p, r) for p, r in
-                               zip(program["losses"], reference["losses"])],
-            "grad1_worst": worst("grad1", list(reference["grad1"])),
-            "update3_worst": worst("change", moving_leaves(reference["grad1"])),
-            "stats3_worst": worst("stats", list(reference["stats"]))}
+    detail = {"step_loss_gaps": [rel_gap(p, r) for p, r in
+                                 zip(program["losses"], reference["losses"])],
+              "grad1_worst": worst("grad1", list(reference["grad1"])),
+              "update3_worst": worst("change", moving_leaves(reference["grad1"]))}
+    if reference["stats"]:
+        detail["stats3_worst"] = worst("stats", list(reference["stats"]))
+    return detail

@@ -48,6 +48,8 @@ TRACED_EPOCHS = 3
 
 
 def _norms(tensors: list[torch.Tensor]) -> list[float]:
+    if not tensors:  # a model with no BatchNorm has no running statistics
+        return []
     return torch.stack([t.float().norm() for t in tensors]).cpu().tolist()
 
 

@@ -43,11 +43,22 @@ def class_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:
     return (len(labels) / (num_classes * np.maximum(counts, 1))).astype(np.float32)
 
 
+DENSE = (torch.nn.Linear, torch.nn.Conv2d)
+NORMS = (torch.nn.BatchNorm2d, torch.nn.LayerNorm)
+
+
 def seeded_state(config: dict, seed: int, calib: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Weights from seed, made on calib's device in one draw: convolutions
-    and hidden dense layers N(0, 2 / fan_in), the last dense layer
-    N(0, 1 / fan_in), dense biases N(0, 0.05²), BatchNorm scales 1 + N(0,
-    0.1²) and shifts N(0, 0.1²); then every BatchNorm's running statistics
+    """Weights from seed, made on calib's device in one draw z, split over
+    the parameters in their order. By the module that owns a parameter:
+    - `nn.Conv2d` / `nn.Linear` weights N(0, 2 / fan_in), the output layer's
+      (the last 2-D leaf) N(0, 1 / fan_in); their biases N(0, 0.05²);
+    - `nn.BatchNorm2d` and `nn.LayerNorm` scales 1 + N(0, 0.1²) and shifts
+      N(0, 0.1²), so that a normalized activation keeps its scale (with
+      LayerNorm scales near 0, q·k would be near 0 and every attention row
+      near uniform);
+    - a parameter that none of these owns (a positional table, a class
+      token) N(0, 0.02²), the std of timm's truncated normal.
+    Then, where the model has BatchNorms, each one's running statistics are
     set to its batch statistics over the calibration waveforms calib (B, L),
     unaugmented, so that eval mode sees normalized activations as a trained
     model does."""
@@ -57,27 +68,27 @@ def seeded_state(config: dict, seed: int, calib: torch.Tensor) -> dict[str, torc
     g = torch.Generator(device=device).manual_seed(derived_seed(seed, 2))
     z = torch.randn(sum(p.numel() for _, p in params), generator=g, device=device)
     last = [n for n, p in params if p.ndim == 2][-1]
+    owner = {id(p): m for m in model.modules() for p in m.parameters(recurse=False)}
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    bn_scales = {id(m.weight) for m in bns}
-    bn_shifts = {id(m.bias) for m in bns}
     with torch.no_grad():
         for (name, p), part in zip(params, z.split([p.numel() for _, p in params])):
-            part = part.view_as(p)
-            if p.ndim > 1:
+            part, m = part.view_as(p), owner[id(p)]
+            if isinstance(m, NORMS):
+                p.copy_(1.0 + 0.1 * part if p is m.weight else 0.1 * part)
+            elif not isinstance(m, DENSE):
+                p.copy_(0.02 * part)
+            elif p.ndim > 1:
                 fan_in = p[0].numel()
                 p.copy_(part * (1.0 / fan_in if name == last else 2.0 / fan_in) ** 0.5)
-            elif id(p) in bn_scales:
-                p.copy_(1.0 + 0.1 * part)
-            elif id(p) in bn_shifts:
-                p.copy_(0.1 * part)
             else:
                 p.copy_(0.05 * part)
-        for bn in bns:
-            bn.calibrate = True
-        with full_f32():
-            model(features(calib, config["data"]), train=True)
-        for bn in bns:
-            bn.calibrate = False
+        if bns:
+            for bn in bns:
+                bn.calibrate = True
+            with full_f32():
+                model(features(calib, config["data"]), train=True)
+            for bn in bns:
+                bn.calibrate = False
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 

@@ -99,8 +99,14 @@ def _compares(workload: str, number: str) -> bool:
     return number in json.loads((ROOT / "port_bench" / "checks" / f"{workload}.json").read_text())
 
 
-CASES = ([(c, f) for c in TRAIN for f in ("state_unchanged", "half_batch", "gradient_altered",
-                                          "stats_unchanged", "stats_momentum_swapped")]
+def _compares_stats(workload: str) -> bool:
+    """Whether the cell's checks compare a BatchNorm statistics number: the
+    BatchNorm faults cannot act on a model without BatchNorm."""
+    return any(_compares(workload, n) for n in ("stats3_gap", "stats3_median_gap"))
+
+
+CASES = ([(c, f) for c in TRAIN for f in ("state_unchanged", "half_batch", "gradient_altered")
+          + (("stats_unchanged", "stats_momentum_swapped") if _compares_stats(c) else ())]
          + [(c, "val_loss_altered") for c in TRAIN if _compares(c, "val_batch_gap")])
 
 
