@@ -1,6 +1,7 @@
-"""Classifiers as torch nn.Modules (LightweightCNN and CompactResNet18), the
-registry that builds them and a user's registered architectures, and the
-opt-in fused inference forward of LightweightCNN."""
+"""Classifiers as torch nn.Modules (LightweightCNN, CompactResNet18 and the
+port's own AST, `models/ast.py`), the registry that builds them and a user's
+registered architectures, and the opt-in fused inference forward of
+LightweightCNN."""
 
 from audio_classification_icbhi_tpu_torch.models.cnn import (  # noqa: F401
     ConvBlock,

@@ -3,8 +3,9 @@
 Port of `audio_classification_icbhi_tpu/models/registry.py:14-71`, with the
 same precision resolution: training.precision, else bf16 when
 training.mixed_precision is set, else fp32. The builtins are registered
-with setdefault, as there, so a class registered under "cnn" or "resnet"
-before this module loads takes their place.
+with setdefault, as there, so a class registered under "cnn", "resnet" or
+"ast" before this module loads takes their place. "ast" (`models/ast.py`)
+is the port's alone.
 """
 
 from __future__ import annotations
@@ -79,11 +80,13 @@ def build_model(config: dict[str, Any], dtype: torch.dtype | None = None,
 
 
 def _register_builtins():
+    from audio_classification_icbhi_tpu_torch.models.ast import AST
     from audio_classification_icbhi_tpu_torch.models.cnn import LightweightCNN
     from audio_classification_icbhi_tpu_torch.models.resnet import CompactResNet
 
     _REGISTRY.setdefault("cnn", LightweightCNN)
     _REGISTRY.setdefault("resnet", CompactResNet)
+    _REGISTRY.setdefault("ast", AST)  # the port's own: the JAX package has no transformer
 
 
 _register_builtins()

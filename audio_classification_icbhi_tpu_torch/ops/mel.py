@@ -122,6 +122,15 @@ def mel_filterbank(
     return torch.as_tensor(fb, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_filterbank(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm, dtype,
+                       device) -> torch.Tensor:
+    """`mel_filterbank` on `device`, made once: a copy from the host inside
+    the chain would break a CUDA graph's capture of it."""
+    return mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm,
+                          dtype=dtype, device=device)
+
+
 # --- dB conversion ----------------------------------------------------------
 
 def amplitude_to_db(
@@ -192,8 +201,8 @@ def log_mel_spectrogram(
     spec = stft_ops.stft_power(waveform, n_fft, hop_length, center=center)  # (..., T, bins)
     if power != 2.0:
         spec = torch.sqrt(torch.clamp(spec, min=0.0)) ** power
-    fb = mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm,
-                        dtype=waveform.dtype, device=waveform.device)
+    fb = _device_filterbank(sample_rate, n_fft, n_mels, f_min, f_max, mel_scale, norm,
+                            waveform.dtype, waveform.device)
     mel = (spec @ fb).transpose(-1, -2)  # (..., n_mels, T)
     if to_db == "amplitude":
         return amplitude_to_db(mel, stype="power" if power == 2.0 else "magnitude",

@@ -82,14 +82,23 @@ def dft_matrices(n_fft: int, *, dtype=torch.float32, device=None):
             torch.as_tensor(s, dtype=dtype, device=device))
 
 
+@functools.lru_cache(maxsize=16)
+def _window_and_dft(n_fft: int, dtype: torch.dtype, device: torch.device):
+    """The periodic Hann window and the DFT matrices on `device`, made once:
+    a copy from the host inside the chain would break a CUDA graph's
+    capture of it (a train step that runs the plain chain)."""
+    return (hann_window(n_fft, dtype=dtype, device=device),
+            *dft_matrices(n_fft, dtype=dtype, device=device))
+
+
 def stft_power(x: torch.Tensor, n_fft: int, hop_length: int, *,
                center: bool = True) -> torch.Tensor:
     """Power spectrogram |STFT|² with shape (..., T, n_fft//2+1), by a
     windowed matmul DFT in the input's dtype (the plain version the kernels
     are held against; time-major, unlike the JAX package's (..., bins, T))."""
     frames = frame_signal(x, n_fft, hop_length, center=center)
-    frames = frames * hann_window(n_fft, dtype=x.dtype, device=x.device)
-    c, s = dft_matrices(n_fft, dtype=x.dtype, device=x.device)
+    window, c, s = _window_and_dft(n_fft, x.dtype, x.device)
+    frames = frames * window
     re = frames @ c
     im = frames @ s
     return re * re + im * im

@@ -68,7 +68,8 @@ collectives). A captured train step holds device marks at its phase boundaries: 
 and front end (the cache gather, dequantize, the augmentation's draws and
 the front end), after each microbatch's forward and loss and after its
 backward, and after the update (the gradient reduce, the clip and the
-optimizer's step); `train_many` leaves them with the recorder after its
+optimizer's step), and the ops' own around their kernels (attention's,
+forward and backward); `train_many` leaves them with the recorder after its
 replays.
 """
 
@@ -408,7 +409,8 @@ def make_step_fns(model: torch.nn.Module, frontend: MelFrontend,
             capture_marks.append(marks)
             marks.mark("start")
         wavs = dequantize(cache.index_select(0, rows[0].reshape(-1))).reshape(a, b, -1)
-        m = train_step(wavs, rows[1], class_weights, lr, generator=generator, marks=marks)
+        with tracing.marking(marks):  # the ops' own marks (`tracing.interval`)
+            m = train_step(wavs, rows[1], class_weights, lr, generator=generator, marks=marks)
         return torch.stack([m["loss"], m["correct"], m["count"], m["grad_norm"]])
 
     @torch.no_grad()

@@ -30,15 +30,20 @@ after its replays (`marks_pending`); once the caller has read the epoch
 back from the device, which synchronises, `read_marks()` adds the phase
 times of the last replay (`step.front_end`, `step.forward`,
 `step.backward`, `step.update`; device ms) to the recorder, with no
-synchronisation of its own. An eager step records no marks.
+synchronisation of its own. An eager step records no marks. Outside that
+chain, an op may mark its own kernels: while `marking(marks)` holds the
+marks of the step being captured, `interval(name)` records a pair of
+events around a block (on any thread: the autograd engine runs backward
+passes on its own), and `read_marks()` adds their device ms, summed over
+the step's pairs, as `step.<name>` (`ops/attention.py`: `step.attention`).
 
 Counters. `count(name, n)` adds to a program counter: graph captures and
 replays by kind (`graph.captures.train`, `graph.replays.eval`) and the
 kernel libraries nvcc built against those loaded as built before
 (`kernels.built`, `kernels.cached`). `counters()` is one snapshot of every
-count the program keeps: those, the kernel wrappers' launch counts
-(`launch_counters()`, as `<wrapper>.<attribute>`) and the rows each WAV
-decoder path decoded (`native.ROWS`, as `rows.<path>`).
+count the program keeps: those, the kernel wrappers' and the attention
+op's launch counts (`launch_counters()`, as `<wrapper>.<attribute>`) and
+the rows each WAV decoder path decoded (`native.ROWS`, as `rows.<path>`).
 
 `snapshot()` gives all of it as plain data and `write(path)` as JSON (the
 `spans.json` that `train.py --profile DIR` writes beside its trace);
@@ -48,6 +53,7 @@ wrappers' launch counts and `native.ROWS` have their own).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -91,6 +97,7 @@ _spans: dict[str, Stat] = defaultdict(Stat)
 _device: dict[str, Stat] = defaultdict(Stat)
 _counts: dict[str, int] = defaultdict(int)
 _pending: list = []  # the StepMarks of the last replays, until read_marks
+_marking: list = [None]  # the StepMarks of the step being captured, for `interval`
 
 
 def _stack() -> list[span]:
@@ -140,20 +147,29 @@ class StepMarks:
     """CUDA timing events at the phase boundaries of one captured train
     step. `mark(phase)` records the end of `phase`, the first call the
     step's start; `phases()` gives each phase's device ms in the last
-    replay, a phase marked several times (one a microbatch) summed."""
+    replay, a phase marked several times (one a microbatch) summed, and
+    each interval's (`interval`) summed over its pairs."""
 
     def __init__(self):
         self.events: list[tuple[str, torch.cuda.Event]] = []
+        self.intervals: dict[str, list[tuple[torch.cuda.Event, torch.cuda.Event]]] = \
+            defaultdict(list)
 
-    def mark(self, phase: str) -> None:
+    @staticmethod
+    def _event() -> torch.cuda.Event:
         event = torch.cuda.Event(enable_timing=True, external=True)
         event.record()
-        self.events.append((phase, event))
+        return event
+
+    def mark(self, phase: str) -> None:
+        self.events.append((phase, self._event()))
 
     def phases(self) -> dict[str, float]:
         out: dict[str, float] = defaultdict(float)
         for (_, a), (phase, b) in zip(self.events, self.events[1:]):
             out[phase] += a.elapsed_time(b)
+        for name, pairs in self.intervals.items():
+            out[name] = sum(a.elapsed_time(b) for a, b in pairs)
         return dict(out)
 
 
@@ -163,6 +179,29 @@ def step_marks(device: torch.device) -> StepMarks | None:
     if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
         return None
     return StepMarks()
+
+
+@contextlib.contextmanager
+def marking(marks: StepMarks | None):
+    """`interval` records into `marks` inside the block (None: nowhere)."""
+    saved, _marking[0] = _marking[0], marks
+    try:
+        yield
+    finally:
+        _marking[0] = saved
+
+
+@contextlib.contextmanager
+def interval(name: str):
+    """A pair of device marks around the block, kept under `name` in the
+    StepMarks that `marking` holds; nothing where it holds none."""
+    marks = _marking[0]
+    if marks is None:
+        yield
+        return
+    start = marks._event()
+    yield
+    marks.intervals[name].append((start, marks._event()))
 
 
 def marks_pending(marks: StepMarks | None) -> None:
@@ -190,8 +229,14 @@ def count(name: str, n: int = 1) -> None:
 
 
 def launch_counters() -> list[tuple[object, str]]:
-    """(function, attribute) of every launch count the kernel wrappers keep."""
-    from audio_classification_icbhi_tpu_torch.ops import conv_epilogue, conv_kernels, mel_kernels
+    """(function, attribute) of every launch count the kernel wrappers and
+    the attention op keep."""
+    from audio_classification_icbhi_tpu_torch.ops import (
+        attention,
+        conv_epilogue,
+        conv_kernels,
+        mel_kernels,
+    )
 
     out = [(fn, attr) for fn in mel_kernels.WRAPPERS.values()
            for attr in ("launches", "launches_masked")]
@@ -200,7 +245,8 @@ def launch_counters() -> list[tuple[object, str]]:
                                         conv_kernels.fused_conv_block1_batched,
                                         conv_kernels.fused_conv_block2,
                                         conv_kernels.fused_conv_block3)]
-    out += [(conv_epilogue.conv_epilogue, attr) for attr in ("launches", "launches_backward")]
+    out += [(fn, attr) for fn in (conv_epilogue.conv_epilogue, attention.attention)
+            for attr in ("launches", "launches_backward")]
     return out
 
 
@@ -245,3 +291,4 @@ def reset() -> None:
         _device.clear()
         _counts.clear()
         _pending.clear()
+        _marking[0] = None

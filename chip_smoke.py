@@ -291,6 +291,12 @@ on one H100).
 
 builds the kernels and runs phase 28 alone on a corpus of 460 recordings
 (`phase28_alone`; about a minute on one H100).
+
+    python3 chip_smoke.py --phase29
+
+builds the kernels and runs phase 29 alone (`phase29_ast`): AST's attention
+op on both SDPA backends, its graphed train step against eager steps, its
+launches a replay and the attention marks' cost.
 """
 
 from __future__ import annotations
@@ -371,6 +377,7 @@ from audio_classification_icbhi_tpu_torch.ops.time_stretch import (
 from audio_classification_icbhi_tpu_torch.parallel.data_parallel import (
     features_from_wavs,
     make_step_fns,
+    step_seed,
     weighted_cross_entropy,
 )
 from audio_classification_icbhi_tpu_torch.parallel.mesh import (
@@ -792,6 +799,7 @@ def main() -> int:
         ranks = phase26_fused_ranks(dev, card, Path(tmp), corpus, sgd_step, fused)
         resnet_fused = phase27_resnet_fused(dev, card, Path(tmp), corpus, resnet["sgd"])
         conv_epilogue_row = phase28_conv_epilogue(dev, card, Path(tmp), corpus)
+        phase29_ast(dev, card)
     epilogue = phase19_epilogue(dev, card)
     print(f"phase 19: the epilogue's main-path launches {EPILOGUE_MAIN_PATH['launches']}")
     check(EPILOGUE_MAIN_PATH["launches"] > 0, "the epilogue launched on the main paths")
@@ -5630,6 +5638,244 @@ def phase28_alone() -> int:
     return 0
 
 
+# phase 29: AST (`models/ast.py`) and its attention (`ops/attention.py`)
+AST_HEADS, AST_HEAD_DIM = 12, 64
+AST_TOKENS = 2 + 12 * ((1 + TRAIN_CLIP // 160 - 16) // 10 + 1)  # 950 at 8 s, hop 160
+
+
+def attention_bound_ms(rows: int, n: int = AST_TOKENS, heads: int = AST_HEADS,
+                       d: int = AST_HEAD_DIM) -> dict[str, float]:
+    """Least ms of one attention call over (rows, heads, n, d), forward and
+    backward: operations 4·B·H·N²·d + 8·B·H·N²·d over the bf16 peak; bytes,
+    bf16 q, k, v, o read or written once by the forward and q, k, v, o, dO,
+    dQ, dK, dV by the backward, and the f32 log-sum-exp written once and
+    read once, over HBM bandwidth (`port_bench/reference/ast.py`'s
+    `attention_gflop` and `attention_bytes` for one layer and one clip)."""
+    flops = 12 * rows * heads * n * n * d
+    nbytes = 12 * rows * heads * n * d * 2 + 2 * rows * heads * n * 4
+    return {"operations": flops / BF16_FLOPS * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def ast_config(corpus: Path | None = None) -> dict:
+    """config.yaml as `port_bench/configs/ast-icbhi8s.json` changes it."""
+    cfg = load_config(str(REPO / "config.yaml"))
+    cfg["model"].update(architecture="ast", dropout=0.0)
+    cfg["data"].update(n_fft=400, hop_length=160, cache_on_device=True)
+    cfg["training"]["learning_rate"] = 5e-5
+    if corpus is not None:
+        cfg["data"]["dataset_path"] = str(corpus)
+    return cfg
+
+
+def phase29_ast(dev, card: str) -> dict:
+    """AST on the card. (a) The attention op at the train step's shapes
+    (32 x 12 heads x 950 x 64, bf16), forward and backward, 20 calls as a
+    CUDA graph, on each SDPA backend the op can pin (flash, cuDNN), through
+    the op itself, and the plain version (2 calls), against the plain
+    version in f32 and beside the bound. (b) The AST train step at
+    config.yaml's 32 x 2 through `train_many` on a cache of 64 noise clips:
+    three steps (the capture's eager warm-up, two replays) against three
+    eager `train_step`s from the same state with the same draws; attention's
+    launches a replayed train step (24 + 24) and eval group (12); the
+    graphs' nodes; `step.attention` from the marks. (c) The attention
+    marks' cost: bare replays of the train graph captured with the marks and
+    without them, in turns."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from audio_classification_icbhi_tpu_torch.models.ast import AST
+    from audio_classification_icbhi_tpu_torch.ops import attention as attn_mod
+
+    out: dict = {}
+    # (a) the op
+    g = torch.Generator(device=dev).manual_seed(29)
+    shape = (32, AST_HEADS, AST_TOKENS, AST_HEAD_DIM)
+    # contiguous: flash's backward over the model's strided views of qkv
+    # breaks a capture (the pinned backend takes them: (b) captures the step)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16().requires_grad_()
+               for _ in range(3))
+    do = torch.randn(shape, generator=g, device=dev).bfloat16()
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = attn_mod.plain(q32, k32, v32)
+    want_grads = torch.autograd.grad(want, (q32, k32, v32), do.float())
+    want = want.detach()
+
+    def gap(a, b):
+        return float((a.detach().float() - b).norm() / b.norm())
+
+    def sdpa(backend):
+        def fn():
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(q, k, v)
+            return (o, *torch.autograd.grad(o, (q, k, v), do))
+        return fn
+
+    def through(f):
+        def fn():
+            o = f(q, k, v)
+            return (o, *torch.autograd.grad(o, (q, k, v), do))
+        return fn
+
+    bound = attention_bound_ms(32)
+    rows = {}
+    for name, fn, calls in (("flash", sdpa(SDPBackend.FLASH_ATTENTION), 20),
+                            ("cudnn", sdpa(SDPBackend.CUDNN_ATTENTION), 20),
+                            ("op", through(attn_mod.attention), 20),
+                            ("plain", through(attn_mod.plain), 2)):
+        got = fn()
+        errs = [gap(a, b) for a, b in zip(got, (want, *want_grads))]
+        del got
+        ms = graph_ms(fn, calls=calls)
+        torch.cuda.empty_cache()
+        rows[name] = {"graph_ms": ms, "rel_err": max(errs)}
+        print(f"phase 29: [{card}] attention {name}, 32 x 12 x 950 x 64 bf16, forward + "
+              f"backward: {ms:.4f} ms a call as a graph of {calls}; output and gradients "
+              f"against the f32 plain version {', '.join(f'{e:.2e}' for e in errs)}")
+        check(max(errs) <= 2e-2, f"attention {name} against the f32 plain version")
+    best = min(("flash", "cudnn"), key=lambda n: rows[n]["graph_ms"])
+    pinned = {SDPBackend.FLASH_ATTENTION: "flash", SDPBackend.CUDNN_ATTENTION: "cudnn"}[
+        attn_mod.BACKEND]
+    print(f"phase 29: bound {max(bound.values()):.4f} ms ({max(bound, key=bound.get)}; "
+          f"operations {bound['operations']:.4f}, bytes {bound['bytes']:.4f}); the faster "
+          f"backend {best}, the op pins {pinned}")
+    out["attention"] = rows | {"bound_ms": max(bound.values()), "faster": best,
+                               "pinned": pinned}
+    del q, k, v, do, q32, k32, v32, want, want_grads
+    torch.cuda.empty_cache()
+
+    # (b) the graphed train step against eager steps
+    cfg = ast_config()
+    fe = MelFrontend.from_config(cfg)
+    a, b = 2, 32
+    clips = (0.1 * torch.randn(64, TRAIN_CLIP, generator=torch.Generator().manual_seed(0))).numpy()
+    labels = np.arange(64) % 4
+    loader = DeviceCachedLoader(HeldClips(clips, labels), b, device=dev)
+    cw = torch.ones(4, device=dev)
+    idxs = np.arange(3 * a * b).reshape(3, a, b) % 64
+    lab = labels[idxs]
+    init = AST(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def fresh():
+        model = AST(dtype=torch.bfloat16)
+        model.load_state_dict(init)
+        model.to(dev)
+        opt = build_optimizer("adam", model.named_parameters(), 1e-4, capturable=True)
+        return model, opt, make_step_fns(model, fe, opt, accum_steps=a, augment=True, seed=0)
+
+    model, opt, fns = fresh()
+    zero_counts()
+    m = fns.train_many(loader.cache, idxs, lab, cw, 5e-5, 0, 0)
+    torch.cuda.synchronize()
+    graph = fns.train_many.graphs["train"]
+    per_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.kernel_launches.items()}
+    counts = (attn_mod.attention.launches, attn_mod.attention.launches_backward)
+    print(f"phase 29: three AST train steps through train_many: attention launches {counts} "
+          f"(the warm-up step's and two replays'), a replay's counted launches {per_replay}")
+    check(per_replay == {"attention.launches": 24, "attention.launches_backward": 24}
+          and counts == (72, 72), "a replayed AST train step: 24 attention calls each way")
+    graphed = {k: v.tolist() for k, v in m.items()}
+    got = param_arrays(model)
+    tracing.read_marks()
+    step_attention = tracing.stat("step.attention")
+    check(step_attention is not None, "the replay's attention marks were read")
+    eval_m = fns.eval_many(loader.cache, np.arange(256).reshape(8, b) % 64,
+                           labels[np.arange(256).reshape(8, b) % 64], np.ones((8, b)), cw)
+    torch.cuda.synchronize()
+    eval_replay = {f"{fn.__name__}.{attr}": n for (fn, attr), n in
+                   fns.eval_many.graphs["eval"].kernel_launches.items()}
+    print(f"phase 29: an eval group replay's counted launches {eval_replay}; "
+          f"eval loss sums {eval_m[0].sum().item():.6f}")
+    check(eval_replay == {"attention.launches": 12}, "an AST eval group replay: 12 calls")
+    nodes = node_kinds(list_graph_nodes(graph.graph))
+    names = [n for kind, n in list_graph_nodes(graph.graph) if kind == "kernel"]
+    attn_kernels = sorted({n for n in names if "attention" in n.lower() or "fmha" in n.lower()
+                           or "flash" in n.lower()})
+    softmax = sum("softmax" in n.lower() for n in names)
+    print(f"phase 29: the AST train graph's nodes {nodes}; attention's kernels {attn_kernels}; "
+          f"kernels named softmax {softmax} (the loss's)")
+    check(len(attn_kernels) > 0 and softmax < 12, "attention on the fused kernels, no softmax chain")
+
+    def eager_steps():
+        """The three steps as eager `train_step`s from the initial state."""
+        ref_model, _, ref_fns = fresh()
+        losses, norms = [], []
+        for s in range(3):
+            gen = torch.Generator(device=dev).manual_seed(step_seed(0, 0, s))
+            wavs = loader.cache.index_select(0, torch.as_tensor(idxs[s].reshape(-1), device=dev))
+            r = ref_fns.train_step(wavs.reshape(a, b, -1), torch.as_tensor(lab[s], device=dev),
+                                   cw, 5e-5, generator=gen)
+            losses.append(float(r["loss"]))
+            norms.append(float(r["grad_norm"]))
+        return {"loss": losses, "grad_norm": norms}, param_arrays(ref_model)
+
+    def apart(x, y) -> float:
+        return float(np.sqrt(sum(float(((p - q) ** 2).sum()) for p, q in zip(x, y))))
+
+    def loss_gap(x, y) -> float:
+        return max(abs(p - q) / abs(q) for p, q in zip(x["loss"], y["loss"]))
+
+    eager, ref = eager_steps()
+    again, ref2 = eager_steps()  # the backward's own run-to-run spread (atomics)
+    init_arrays = [x.detach().double().cpu().numpy() for x in init.values()]
+    moved = apart(ref, init_arrays)
+    same = all(np.array_equal(x, y) for x, y in zip(got, ref))
+    floor = {"loss": loss_gap(again, eager), "update": apart(ref2, ref) / moved}
+    gaps = {"loss": loss_gap(graphed, eager), "update": apart(got, ref) / moved}
+    print(f"phase 29: graphed against eager, three steps: losses {graphed['loss']} / "
+          f"{eager['loss']}, grad norms {graphed['grad_norm']} / {eager['grad_norm']}; params "
+          f"bit-equal {same}; worst loss rel {gaps['loss']:.2e}, ‖graphed − eager‖ / ‖eager − "
+          f"init‖ {gaps['update']:.2e}; two eager runs from the same state apart by "
+          f"{floor['loss']:.2e} and {floor['update']:.2e}")
+    check(graphed["loss"][0] == eager["loss"][0], "the warm-up step is the eager step 0")
+    check(all(g <= max(3 * floor[k], 1e-6) for k, g in gaps.items()),
+          "graphed AST steps within 3x the spread of two eager runs")
+    loss_err = gaps["loss"]
+    out["step"] = {"loss_rel_err": loss_err, "bit_equal": same, "update_gap": gaps["update"],
+                   "eager_floor": floor, "nodes": nodes,
+                   "step_attention_ms": float(np.median(step_attention.ring))}
+
+    # (c) the marks' cost: the same step captured without attention's marks
+    bare = fns.train_many.graphs["train"].graph
+    real = tracing.interval
+    tracing.interval = lambda name: contextlib.nullcontext()
+    try:
+        model2, opt2, fns2 = fresh()
+        fns2.train_many(loader.cache, idxs[:2], lab[:2], cw, 5e-5, 0, 0)
+    finally:
+        tracing.interval = real
+    unmarked = fns2.train_many.graphs["train"].graph
+    times = {"marked": [], "unmarked": []}
+    for _ in range(3):
+        for name, gr in (("marked", bare), ("unmarked", unmarked)):
+            times[name].append(cuda_ms(gr.replay, 10, warmup=2))
+    cost = (min(times["marked"]) - min(times["unmarked"])) / min(times["unmarked"])
+    print(f"phase 29: [{card}] bare replays of the AST train step, ms: with the attention marks "
+          f"{times['marked']}, without {times['unmarked']}: the marks cost {100 * cost:+.3f} %; "
+          f"step.attention {out['step']['step_attention_ms']} ms")
+    check(cost < 0.01, "the attention marks cost under 1 % of a bare replay")
+    out["marks_cost"] = cost
+    del model, opt, fns, model2, opt2, fns2, loader
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase29_alone() -> int:
+    """`python3 chip_smoke.py --phase29`: the build and phase 29, without the
+    other phases. Exits non-zero on any failed check."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"{card}; torch {torch.__version__}; CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    print(json.dumps({"ast": phase29_ast(dev, card)}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         sys.exit(compare_parent(Path(sys.argv[2])))
@@ -5637,5 +5883,8 @@ if __name__ == "__main__":
         sys.exit(phase27_alone())
     if sys.argv[1:] == ["--phase28"]:
         sys.exit(phase28_alone())
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--parent DIR | --phase27 | --phase28]")
+    if sys.argv[1:] == ["--phase29"]:
+        sys.exit(phase29_alone())
+    check(len(sys.argv) == 1,
+          "usage: python3 chip_smoke.py [--parent DIR | --phase27 | --phase28 | --phase29]")
     sys.exit(main())

@@ -85,7 +85,7 @@ def test_registry_builds_resnet():
     cfg["model"]["architecture"] = "resnet"
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     assert isinstance(model, CompactResNet) and model.dtype == torch.bfloat16
-    assert available_models() == ["cnn", "resnet"]
+    assert available_models() == ["ast", "cnn", "resnet"]
 
 
 @pytest.mark.parametrize("stages, shape, dtype", [

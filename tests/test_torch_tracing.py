@@ -336,7 +336,8 @@ def test_readers_are_declared_for_both_cells():
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     declared = {m["name"]: m for m in bench["per_layer"]}
     for name in READERS:
-        assert declared[name]["workloads"] == ["lwcnn-train-epochs", "resnet18-train-epochs"]
+        assert declared[name]["workloads"] == ["lwcnn-train-epochs", "resnet18-train-epochs",
+                                               "ast-train-epochs"]
         assert (REPO / "port_bench" / "metrics" / f"{name}.py").exists()
 
 
